@@ -1,0 +1,122 @@
+"""Foveated sample mask and stream compaction (counterpart of
+`fovtrace/kernels/sampling.py`, the parts the masked path uses).
+
+Compaction is a stable cumsum scatter into a static budget. Indices that
+fall outside the budget go to one extra sink slot, which is sliced off
+(the reference drops them with an out-of-bounds scatter).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# 4x4 dither masks, 1 = sample
+MASK_25 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [1, 1, 1, 1], [1, 1, 1, 1]],
+                     bool)
+MASK_50 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 1, 1], [0, 0, 1, 1]],
+                     bool)
+MASK_75 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0]],
+                     bool)
+
+
+def gaze_distance(height: int, width: int, gaze_px, device) -> torch.Tensor:
+    """|pixel - gaze| / |screen diagonal|, [H,W]."""
+    gy, gx = gaze_px
+    py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
+    d = torch.sqrt((px - gx) ** 2 + (py - gy) ** 2)
+    return d / float(np.sqrt(np.float32(float(width) ** 2
+                                        + float(height) ** 2)))
+
+
+def masked_sampling(height: int, width: int, gaze_dist, saliency,
+                    aperture: float = 0.07, extra_sample_rate: int = 8):
+    """Binary dither-mask decision [H,W] bool: full inside r0, 25-mask to
+    1.5 r0, 50-mask to 2 r0; saliency bands add samples; a sparse
+    1/extra^2 grid floors the periphery. The tables index [x % 4][y % 4],
+    as in the reference."""
+    dev = gaze_dist.device
+    r0 = aperture
+    r1 = r0 * 1.5
+    r2 = r0 * 2.0
+    ys = np.arange(height)[:, None] % 4
+    xs = np.arange(width)[None, :] % 4
+    tab = lambda m: torch.as_tensor(m[xs, ys], device=dev)
+    m25, m50, m75 = tab(MASK_25), tab(MASK_50), tab(MASK_75)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+
+    sample = torch.where(
+        gaze_dist < r0, True,
+        torch.where(gaze_dist <= r1, m25,
+                    torch.where(gaze_dist <= r2, m50, false)))
+    g0, g1, g2 = 0.01, 0.4, 0.6
+    s = saliency
+    sal_extra = torch.where(
+        (s > g0) & (s < g1), m75,
+        torch.where((s >= g1) & (s < g2), m50,
+                    torch.where(s >= g2, m25, false)))
+    rows = torch.arange(height, device=dev)[:, None] % extra_sample_rate == 0
+    cols = torch.arange(width, device=dev)[None, :] % extra_sample_rate == 0
+    sal_extra = torch.where(s <= g0, rows & cols, sal_extra)
+    return sample | sal_extra
+
+
+def compact_mask_rank(mask: torch.Tensor, budget: int):
+    """Stable compaction of a flat bool mask into `budget` slots.
+
+    Returns (idx [budget] i64 source positions, active [budget] bool,
+    rank [N] i64 slot of each selected lane, gate [N] bool: landed
+    inside the budget). Set lanes beyond the budget are dropped."""
+    n = mask.shape[0]
+    dev = mask.device
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    gate = mask & (pos < budget)
+    dest = torch.where(gate, pos, budget)
+    idx = torch.zeros((budget + 1,), dtype=torch.int64, device=dev)
+    idx[dest] = torch.arange(n, dtype=torch.int64, device=dev)
+    total = mask.sum()
+    active = torch.arange(budget, device=dev) < total
+    rank = torch.where(gate, pos, 0)
+    return idx[:budget], active, rank, gate
+
+
+def compact_mask_keyed_rank(mask: torch.Tensor, key: torch.Tensor, nkeys: int,
+                            budget: int):
+    """Stable key-major compaction: selected lanes are packed bucket 0
+    first, then bucket 1, ..., in original order inside each bucket;
+    overflow drops from the tail buckets. Returns (idx, active, rank,
+    gate) as compact_mask_rank."""
+    n = mask.shape[0]
+    dev = mask.device
+    dest = torch.full((n,), budget, dtype=torch.int64, device=dev)
+    offset = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(nkeys):
+        sel = mask & (key == k)
+        seli = sel.to(torch.int64)
+        r = offset + torch.cumsum(seli, 0) - 1
+        dest = torch.where(sel & (r < budget), r, dest)
+        offset = offset + seli.sum()
+    idx = torch.zeros((budget + 1,), dtype=torch.int64, device=dev)
+    idx[dest] = torch.arange(n, dtype=torch.int64, device=dev)
+    active = torch.arange(budget, device=dev) < offset
+    gate = dest < budget
+    rank = torch.where(gate, dest, 0)
+    return idx[:budget], active, rank, gate
+
+
+def direction_octant(d) -> torch.Tensor:
+    """[N] i64 in [0, 8): sign octant of an SoA direction."""
+    return ((d.x < 0.0).to(torch.int64) * 4 + (d.y < 0.0).to(torch.int64) * 2
+            + (d.z < 0.0).to(torch.int64))
+
+
+def expand_by_rank(rows, rank, gate):
+    """Compacted rows [B, C] back to source lanes [N, C]:
+    out[p] = rows[rank[p]] * gate[p]."""
+    return rows[rank] * gate.to(rows.dtype)[:, None]
+
+
+def compact_gather(rows, idx):
+    """Source rows [N, C] into compacted slots [B, C]: out[j] = rows[idx[j]]."""
+    return rows[idx]

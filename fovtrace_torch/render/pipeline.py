@@ -1,0 +1,239 @@
+"""Per-frame render pipeline (counterpart of `fovtrace/render/pipeline.py`).
+
+  gbuffer      primary-ray G-buffer and shadow term   (render.gbuffer)
+  sampling     cache validation, saliency, sample mask
+  compact      the mask, compacted in 16x16 tile order into the static
+               ray budget
+  shade        wavefront path trace of the compacted rays + temporal
+               accumulation                            (render.shade)
+  reconstruct  pull-push hole filling, then A-Trous
+
+Frame-to-frame state is an explicit `FrameState`. Counters come back as
+device tensors; nothing in a frame waits for the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from fovtrace_torch.config import RenderConfig, pin_fp32
+from fovtrace_torch.core import color as colorx
+from fovtrace_torch.core import mathx, reproject, rng, vec
+from fovtrace_torch.core.camera import Camera
+from fovtrace_torch.core.vec import Vec3
+from fovtrace_torch.kernels import atrous, pullpush, saliency, sampling
+from fovtrace_torch.render import gbuffer as gbuffer_mod
+from fovtrace_torch.render import shade as shade_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameState:
+    history: torch.Tensor      # [4,H,W] accumulated rgb + sample count
+    depth_cache: torch.Tensor  # [H,W] view depth of the previous frame
+    prev_camera: Camera
+    frame: torch.Tensor        # 0-d int64
+
+    @classmethod
+    def initial(cls, camera: Camera, config: RenderConfig) -> "FrameState":
+        h, w = config.height, config.width
+        dev = camera.device
+        return cls(history=torch.zeros((4, h, w), device=dev),
+                   depth_cache=torch.zeros((h, w), device=dev),
+                   prev_camera=camera,
+                   frame=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def stage_gbuffer(scene, camera, prev_camera, config: RenderConfig):
+    return gbuffer_mod.trace_gbuffer(scene, camera, prev_camera, config.width,
+                                     config.height, config)
+
+
+def stage_sampling(scene, gbuf, gaze_px, state: FrameState,
+                   config: RenderConfig):
+    """Cache validation, saliency and the sample mask. Returns (mask,
+    saliency, is_valid, fetched cache rows, gaze_target, ray_count)."""
+    h, w = config.height, config.width
+    is_valid, _, _, fetched = reproject.validate_cache(
+        gbuf["reproject_u"], gbuf["reproject_v"], gbuf["position"],
+        state.depth_cache, state.prev_camera.eye, w, h, config.cache_epsilon,
+        history=state.history)
+    if not config.temporal:
+        is_valid = torch.zeros_like(is_valid)
+    d = scene.bbox_max - scene.bbox_min
+    bbox_diag = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    sal = saliency.compute_saliency(gbuf, gaze_px, bbox_diag,
+                                    config.saliency_block)
+    if config.sampling_mode == "full":
+        mask = torch.ones((h, w), dtype=torch.bool, device=sal.device)
+    else:  # "masked"
+        gdist = sampling.gaze_distance(h, w, gaze_px, sal.device)
+        mask = sampling.masked_sampling(h, w, gdist, sal, config.aperture,
+                                        config.extra_sample_rate)
+    p = gbuf["position"]
+    gy, gx = gaze_px
+    gaze_target = torch.stack([p.x[gy, gx], p.y[gy, gx], p.z[gy, gx]])
+    return mask, sal, is_valid, fetched, gaze_target, mask.sum()
+
+
+def stage_compact(mask, config: RenderConfig):
+    """Compaction in 16x16 tile order: each 256-ray block of the list is
+    one compact screen tile. Returns (idx [budget] scanline pixel ids,
+    active [budget], rank [H*W], gate [H*W] landed in the budget)."""
+    h, w = config.height, config.width
+    if not gbuffer_mod._can_swizzle(h, w):
+        return sampling.compact_mask_rank(mask.reshape(-1), config.ray_budget)
+    mask_sw = gbuffer_mod.swizzle_to_tiles(mask.reshape(-1), h, w)
+    idx_sw, active, rank_sw, gate_sw = sampling.compact_mask_rank(
+        mask_sw, config.ray_budget)
+    # tile-major position -> scanline pixel id
+    tw = w // 16
+    ty = idx_sw // (tw * 256)
+    r1 = idx_sw % (tw * 256)
+    tx = r1 // 256
+    r2 = r1 % 256
+    idx = (ty * 16 + r2 // 16) * w + tx * 16 + r2 % 16
+    rank = gbuffer_mod.unswizzle_from_tiles(rank_sw, h, w)
+    gate = gbuffer_mod.unswizzle_from_tiles(gate_sw, h, w)
+    return idx, active, rank, gate
+
+
+def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
+                state: FrameState, config: RenderConfig, gaze_target, rank,
+                gate):
+    """Foveated path trace of the compacted rays and the temporal
+    accumulate. Returns ((shading rgb, alpha), history [4,H,W],
+    traced mask [H,W], rays_traced)."""
+    h, w = config.height, config.width
+    py = (idx // w).to(torch.float32)
+    px = (idx % w).to(torch.float32)
+    c_history = reproject.history_from_fetch(fetched, is_valid)
+    hrows = fetched[idx].T                                 # [5, budget]
+    vray = is_valid.reshape(-1)[idx] > 0.0
+    hist_count = torch.where(vray, hrows[3], 0.0)
+
+    # the seed depends on the frame only once history exists
+    seed_frame = torch.where(hist_count > 0.0, state.frame, 0)
+    seeds = rng.pixel_seed(idx, seed_frame)
+    j1, seeds = rng.rnd(seeds)
+    j2, seeds = rng.rnd(seeds)
+    ndc_x = (px + j1 - 0.5) / w * 2.0 - 1.0
+    ndc_y = (py + j2 - 0.5) / h * 2.0 - 1.0
+    _, dirs = camera.unproject_v(ndc_x, ndc_y, float(w) / float(h))
+    origins = vec.splat(camera.eye, dirs.shape)
+    if config.dof:
+        u1, seeds = rng.rnd(seeds)
+        u2, seeds = rng.rnd(seeds)
+        focus = torch.linalg.vector_norm(gaze_target - camera.eye)
+        origins, dirs = camera.thin_lens_perturb_v(dirs, focus,
+                                                   config.lens_radius, u1, u2)
+
+    radiance, shade_aux = shade_mod.shade_v(scene, origins, dirs, seeds,
+                                            config)
+    tm = radiance.map(lambda c: colorx.uncharted2_tonemap(
+        c, config.exposure_bias))
+
+    # temporal accumulate as a gather through the inverse compaction map
+    act = active.to(torch.float32)
+    rows5 = torch.stack([tm.x * act, tm.y * act, tm.z * act, act, act],
+                        dim=-1)                            # [B, 5]
+    acc = sampling.expand_by_rank(rows5, rank.reshape(-1),
+                                  gate.reshape(-1)).T      # [5, H*W]
+    history = c_history + acc[:4].reshape(4, h, w)
+    traced_mask = acc[4].reshape(h, w)
+    cnt = history[3]
+    inv = mathx.safe_inv_pos(cnt)
+    shading_rgb = Vec3(history[0] * inv, history[1] * inv, history[2] * inv)
+    shading_alpha = (cnt > 0.0).to(torch.float32)
+    return (shading_rgb, shading_alpha), history, traced_mask, \
+        shade_aux["rays_traced"]
+
+
+def stage_reconstruct(shading_rgb: Vec3, shading_alpha, gbuf,
+                      config: RenderConfig):
+    """Pull-push then A-Trous (or either alone, or none). Returns
+    (image rgb, image alpha, extras for the full outputs)."""
+    recon = config.reconstruction
+    extras: Dict[str, torch.Tensor] = {}
+    if recon == "none":
+        return shading_rgb, shading_alpha, extras
+    pp_rgb, pp_a = pullpush.pull_push_v(shading_rgb, shading_alpha)
+    if config.full_outputs:
+        extras["pullpush"] = torch.cat([vec.to_rows(pp_rgb), pp_a[..., None]],
+                                       dim=-1)
+    if recon == "pullpush":
+        return pp_rgb, pp_a, extras
+    at = atrous.atrous_denoise_v(pp_rgb, gbuf["position"], gbuf["normal"],
+                                 config.atrous_iterations, config.atrous_c_phi,
+                                 config.atrous_n_phi, config.atrous_p_phi)
+    if config.full_outputs:
+        extras["atrous"] = torch.cat([vec.to_rows(at), pp_a[..., None]],
+                                     dim=-1)
+    return at, pp_a, extras
+
+
+def render_frame(scene, camera: Camera, gaze_px, state: FrameState,
+                 config: RenderConfig) -> Tuple[Dict[str, torch.Tensor],
+                                                FrameState]:
+    """Render one frame. gaze_px: (gy, gx) pixel coordinates.
+
+    Returns (outputs, new_state). Outputs always hold image_rgb /
+    image_alpha (planar), gaze_target, ray_count, rays_dropped (mask
+    pixels that found no compaction slot) and rays_traced (primary +
+    shadow + every wavefront ray); with config.full_outputs also the
+    row-layout view buffers."""
+    pin_fp32(camera.device)
+    gaze_px = (int(gaze_px[0]), int(gaze_px[1]))
+    h, w = config.height, config.width
+    gbuf = stage_gbuffer(scene, camera, state.prev_camera, config)
+    mask, sal, is_valid, fetched, gaze_target, ray_count = stage_sampling(
+        scene, gbuf, gaze_px, state, config)
+    idx, active, rank, gate = stage_compact(mask, config)
+    (shading_rgb, shading_alpha), history, traced_mask, shade_rays = \
+        stage_shade(scene, camera, idx, active, fetched, is_valid, state,
+                    config, gaze_target, rank, gate)
+    image_rgb, image_alpha, extras = stage_reconstruct(
+        shading_rgb, shading_alpha, gbuf, config)
+
+    outputs: Dict[str, torch.Tensor] = {
+        "image_rgb": image_rgb,
+        "image_alpha": image_alpha,
+        "gaze_target": gaze_target,
+        "ray_count": ray_count,
+        "rays_dropped": ray_count - gate.sum(),
+        "rays_traced": gbuf["rays_traced"] + shade_rays,
+    }
+    if config.full_outputs:
+        outputs.update({
+            "image": vec.to_rows(image_rgb),
+            "position": vec.to_rows(gbuf["position"]),
+            "normal": vec.to_rows(gbuf["normal"]),
+            "depth": gbuf["depth"],
+            "albedo": vec.to_rows(gbuf["albedo"]),
+            "weight": torch.stack([gbuf["reproject_u"], gbuf["reproject_v"],
+                                   is_valid, torch.zeros_like(is_valid)],
+                                  dim=-1),
+            "shading": torch.cat([vec.to_rows(shading_rgb),
+                                  shading_alpha[..., None]], dim=-1),
+            "saliency": sal,
+            "mask": mask,
+            "traced": traced_mask,
+        })
+        outputs.update(extras)
+    new_state = FrameState(history=history, depth_cache=gbuf["depth"],
+                           prev_camera=camera, frame=state.frame + 1)
+    return outputs, new_state
+
+
+def render_sequence(scene, cameras, gazes, config: RenderConfig,
+                    state: FrameState | None = None):
+    """Render a camera/gaze trajectory; returns ([H,W,3] images, state)."""
+    if state is None:
+        state = FrameState.initial(cameras[0], config)
+    frames = []
+    for cam, gaze in zip(cameras, gazes):
+        out, state = render_frame(scene, cam, gaze, state, config)
+        frames.append(vec.to_rows(out["image_rgb"]))
+    return frames, state
