@@ -2,21 +2,35 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure exits non-zero):
-  1. card      require CUDA; print the card's name and power limit
-  2. build     compile the CUDA kernels from fovtrace_torch/csrc
-  3. kernels   each kernel against its plain PyTorch version on the card
-               (earth scene: 4,096 seeded random rays, the primary rays
-               and the G-buffer shadow rays of a 256x256 frame)
-  4. main      the CLI's render path on earth at 1920x1088 with the bench
-               configuration, 3 frames of the circle gaze; counts kernel
-               launches and plain/brute calls during exactly that run
-  5. timing    kernel and plain version at the main path's shapes: the
-               1920x1088 G-buffer and the bounce-0 front of the frame
-  6. parity    a 256x256 frame with the kernels vs one with the plain
-               versions; a 64x64 frame vs tests/golden/earth.npz
-The line before last is the card's name and power limit, and the last
-line is the JSON result.
+Phases (each prints its own lines and its wall time; any failure exits
+non-zero):
+  card           require CUDA; print the card's name and power limit
+  build          compile the CUDA kernels from fovtrace_torch/csrc
+  kernels earth  the resident kernels against their plain PyTorch
+                 versions (earth: 4,096 seeded random rays, the primary
+                 rays and the G-buffer shadow rays of a 256x256 frame)
+  kernels forced-stream
+                 earth forced onto the streaming route (M = 1) equal bit
+                 for bit to the resident kernels; multi forced to M = 16
+                 (MAX_SCHED = 4, repacked) against the plain versions
+  city build     host build of the 170k-triangle city scene and its route
+  kernels city   the streaming kernels against their plain versions on
+                 city (the same three ray sets)
+  main earth     the CLI's render path on earth at 1920x1088 with the
+                 bench configuration, 3 frames of the circle gaze; counts
+                 kernel launches and plain/brute calls during that run
+  main city      the same on city, through the streaming kernels
+  profile        per-stage times (a synchronise after each stage) and a
+                 torch.profiler summary of one frame of each scene
+  timing         each kernel, its plain version and its bound at the
+                 main path's shapes: the 1920x1088 G-buffer and the
+                 bounce-0 front of the earth (resident) and city
+                 (streaming) frames
+  parity         256x256 frames with the kernels vs with the plain
+                 versions (earth, city); a 64x64 earth frame vs
+                 tests/golden/earth.npz
+The line before last is the card's name and power limit, the one before
+it the kernels' JSON line, and the last line is the JSON result.
 """
 
 from __future__ import annotations
@@ -32,6 +46,25 @@ import torch
 
 SEED = 7
 GAZE_CFG = dict(reconstruction="atrous", max_depth=4, diffuse_max_depth=1)
+DEVICE = "cuda"
+W, H = 1920, 1088      # the main paths' frame
+RES = 256              # the kernel checks' and parity frames' side
+NCHK = 4096            # seeded random rays per kernel check
+SRC = "fovtrace_torch/csrc/cluster_isect.cu"
+REPLACES = {"closest_hit": "fovtrace/kernels/pallas_isect.py:518",
+            "occlusion": "fovtrace/kernels/pallas_isect.py:806",
+            "closest_hit_stream": "fovtrace/kernels/pallas_isect.py:577",
+            "occlusion_stream": "fovtrace/kernels/pallas_isect.py:850"}
+KERNELS = tuple(REPLACES)
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# and HBM3 bandwidth
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# operations per (ray, triangle) pair: the four 10-term dot products
+# (40 FMAs = 80) and the epilogue's 13: ud, vd, det*det, ud + vd, |det|,
+# 1/det, t_num * inv_det and 6 compares (|det| > eps, ud >= 0, vd >= 0,
+# ud + vd <= det^2, t > t_min, t < t_max)
+OPS_PER_PAIR = 93
 
 
 def card_line() -> str:
@@ -56,8 +89,34 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def compare(name, scene, ro, rd, tmin, tmax, dev, results):
-    """Kernel vs plain version on one ray set; records the agreement."""
+class Phases:
+    """Prints each phase's wall time when the next one starts."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.perf_counter()
+
+    def start(self, name):
+        self.end()
+        self.name, self.t0 = name, time.perf_counter()
+
+    def end(self):
+        if self.name:
+            print(f"[{self.name}] phase wall {time.perf_counter() - self.t0:.2f} s",
+                  flush=True)
+        self.name = None
+
+
+def kernel_name(kind, scene):
+    """The launch counter of `kind` on this scene's route."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    nc, c = scene.cluster_aabb.shape[0], scene.isect_coef.shape[2] // 4
+    return kind + ("_stream" if ci.route(nc, c) == "stream" else "")
+
+
+def compare(name, scene, ro, rd, tmin, tmax, dev, errs):
+    """Kernel vs plain version on one ray set; records the agreement
+    under the name of the kernel the scene's route takes."""
     from fovtrace_torch.kernels import cluster_isect as ci
     from fovtrace_torch.kernels import intersect as isect
 
@@ -79,9 +138,10 @@ def compare(name, scene, ro, rd, tmin, tmax, dev, results):
     t_err = float((rk - rp)[both].abs().max()) if hits else 0.0
     t_ok = bool(torch.allclose(rk[both], rp[both], rtol=1e-3, atol=1e-4))
     frac = same / max(hits, 1)
-    print(f"[kernels] {name}: closest_hit {n} rays, {hits} hits, "
-          f"hit/miss flips {flips}, identical ids {frac:.5f}, refined t "
-          f"max |err| {t_err:.3e}")
+    kc, ko = kernel_name("closest_hit", scene), kernel_name("occlusion", scene)
+    print(f"[kernels] {name}: {kc} {n} rays, {hits} hits, hit/miss flips "
+          f"{flips}, identical ids {frac:.5f}, refined t max |err| "
+          f"{t_err:.3e}")
     assert flips == 0, f"{name}: {flips} hit/miss flips"
     assert frac >= 0.995, f"{name}: only {frac:.5f} identical ids"
     assert t_ok, f"{name}: refined t off by {t_err}"
@@ -90,54 +150,25 @@ def compare(name, scene, ro, rd, tmin, tmax, dev, results):
     ap = torch.stack(ci.occlusion_plain(raysT, coef, aux, sched, counts,
                                         params))
     a_err = float((ak - ap).abs().max())
-    print(f"[kernels] {name}: occlusion max |err| {a_err:.3e}, "
-          f"occluded {float((ap.amax(0) == 0).float().mean()):.4f}")
+    print(f"[kernels] {name}: {ko} max |err| {a_err:.3e}, occluded "
+          f"{float((ap.amax(0) == 0).float().mean()):.4f}")
     assert torch.allclose(ak, ap, rtol=1e-4, atol=1e-4), \
         f"{name}: occlusion off by {a_err}"
-    results["closest_hit"] = max(results.get("closest_hit", 0.0), t_err)
-    results["occlusion"] = max(results.get("occlusion", 0.0), a_err)
+    errs[kc] = max(errs.get(kc, 0.0), t_err)
+    errs[ko] = max(errs.get(ko, 0.0), a_err)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
-              "test needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    from fovtrace_torch import _build
-    from fovtrace_torch.app import cli
-    from fovtrace_torch.config import RenderConfig, pin_fp32
-    from fovtrace_torch.core.camera import Camera
+def ray_sets(scene, cam, dev):
+    """{name: (ro, rd, t_max)}: NCHK seeded random rays around the
+    scene, the RES x RES primary rays in tile order, and the shadow rays
+    of that frame's G-buffer."""
+    from fovtrace_torch.config import RenderConfig
     from fovtrace_torch.core.vec import Vec3
-    from fovtrace_torch.kernels import cluster_isect as ci
     from fovtrace_torch.kernels import intersect as isect
-    from fovtrace_torch.render import gbuffer, pipeline
-    from fovtrace_torch.scene import procedural
+    from fovtrace_torch.render import gbuffer
 
-    dev = torch.device("cuda", 0)
-    pin_fp32(dev)
-    # ---- 1. card ----------------------------------------------------------
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"[card] {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
-
-    # ---- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    ci.load_cuda_library()
-    print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("fovtrace_cluster_isect",
-                                      "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build] {line.strip()}")
-
-    scene = procedural.earth_scene(dev)
-    cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
-                        device=dev)
-
-    # ---- 3. kernels vs plain ---------------------------------------------
-    errs: dict = {}
     rng = np.random.default_rng(SEED)
-    nchk = 4096
+    nchk = NCHK
     ctr = ((scene.bbox_min + scene.bbox_max) / 2.0).cpu().numpy()
     ext = float(torch.linalg.vector_norm(scene.bbox_max - scene.bbox_min))
     ro = ctr + rng.normal(size=(nchk, 3)).astype(np.float32) * ext
@@ -145,36 +176,92 @@ def main() -> int:
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
     v = lambda a: Vec3(*[torch.as_tensor(a[:, k], dtype=torch.float32,
                                          device=dev) for k in range(3)])
-    compare("random4096", scene, v(ro), v(rd), 1e-3, isect.BIG_T, dev, errs)
-
-    cfg256 = RenderConfig(width=256, height=256, **GAZE_CFG)
-    pro, prd = cam.primary_rays_v(256, 256)
-    swz = lambda a: gbuffer.swizzle_to_tiles(a.reshape(-1), 256, 256)
+    out = {f"random{nchk}": (v(ro), v(rd), isect.BIG_T)}
+    pro, prd = cam.primary_rays_v(RES, RES)
+    swz = lambda a: gbuffer.swizzle_to_tiles(a.reshape(-1), RES, RES)
     pro, prd = pro.map(swz), prd.map(swz)
-    compare("primary256", scene, pro, prd, 1e-3, isect.BIG_T, dev, errs)
+    out[f"primary{RES}"] = (pro, prd, isect.BIG_T)
     hit, surf = isect.intersect_surface_v(scene, pro, prd, 1e-3, isect.BIG_T)
-    so, sd, stmax, _ = gbuffer.shadow_rays(scene, prd, hit, surf, cfg256)
-    compare("shadow256", scene, so, sd, 1e-3, stmax, dev, errs)
+    cfg = RenderConfig(width=RES, height=RES, **GAZE_CFG)
+    so, sd, stmax, _ = gbuffer.shadow_rays(scene, prd, hit, surf, cfg)
+    out[f"shadow{RES}"] = (so, sd, stmax)
+    return out
 
-    # ---- 4. main path at full size ----------------------------------------
-    w, h = 1920, 1088
-    bench_cfg = RenderConfig(width=w, height=h, ray_budget_frac=0.50,
-                             full_outputs=False, **GAZE_CFG)
-    # bench.py's budget sizing: one probe frame; if the mask is denser
-    # than the budget, raise the fraction to cover it plus 2%
-    probe, _ = pipeline.render_frame(scene, cam, (h // 2, w // 2),
-                                     pipeline.FrameState.initial(cam,
-                                                                 bench_cfg),
-                                     bench_cfg)
-    need = int(probe["ray_count"]) / (w * h)
+
+def bound(kind, args, visited):
+    """(bound_ms, bound_by) of one launch: the larger of its operations
+    over the float32 peak and its bytes over the HBM rate. Pairs are the
+    (ray, triangle) pairs of the member clusters the kernel tested
+    (`visited`); bytes count the rays, counts and outputs once, the
+    schedule entries walked, and rows 0-9 of every cluster some block
+    tested once (plus its aux rows 0-4 for a transparent cluster in
+    occlusion)."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    raysT, coef = args[0], args[1]
+    sched, counts = (args[2], args[3]) if kind == "closest_hit" else \
+        (args[3], args[4])
+    nb, nc, c = raysT.shape[0], coef.shape[0], coef.shape[2] // 4
+    m = ci.pick_members(nc)
+    nsc, sw = nc // m, sched.shape[1] // 2
+    dev = raysT.device
+    in_row = torch.arange(nsc, device=dev)[None, :] < counts[:, None].long()
+    if m == 1:
+        live = in_row[..., None]
+    else:
+        bits = sched[:, sw:sw + nsc]
+        live = (((bits[..., None] >> torch.arange(m, device=dev)) & 1) == 1) \
+            & in_row[..., None]
+    live = live.reshape(nb, -1)
+    walked = live & (live.long().cumsum(1) <= visited[:, None].long())
+    cid = ((sched[:, :nsc] & 0xFFFF).long()[..., None] * m
+           + torch.arange(m, device=dev)).reshape(nb, -1)
+    used = torch.zeros(nc, dtype=torch.bool, device=dev)
+    used[cid[walked]] = True
+    entries = int(walked.reshape(nb, nsc, m).any(-1).sum())
+    slab = int(used.sum()) * 10 * 4 * c * 4     # coefficient rows 0-9
+    out_bytes = nb * 256 * (8 if kind == "closest_hit" else 12)
+    if kind == "occlusion":
+        tflags = ci.cluster_tflags(args[2])
+        slab += int((used & (tflags == 1)).sum()) * 5 * c * 4
+    nbytes = raysT.numel() * 4 + nb * 4 + entries * 8 + slab + out_bytes
+    pairs = int(visited.sum()) * 256 * c
+    t_ops = pairs * OPS_PER_PAIR / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, pairs, nbytes
+
+
+def bench_probe_frac(scene, cam):
+    """bench.py's budget sizing: one probe frame; if the mask is denser
+    than the budget, raise the fraction to cover it plus 2%."""
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.render import pipeline
+
+    cfg = RenderConfig(width=W, height=H, ray_budget_frac=0.50,
+                       full_outputs=False, **GAZE_CFG)
+    probe, _ = pipeline.render_frame(scene, cam, (H // 2, W // 2),
+                                     pipeline.FrameState.initial(cam, cfg),
+                                     cfg)
+    need = int(probe["ray_count"]) / (W * H)
     frac = 0.50
     if int(probe["rays_dropped"]) > 0 or need > frac:
         frac = min(1.0, float(np.ceil((need + 0.02) * 20)) / 20)
-    print(f"[main] mask covers {100 * need:.2f}% of pixels -> "
+    return need, frac, cfg.replace(ray_budget_frac=frac)
+
+
+def main_path(label, scene_name, scene, cam, card):
+    """The CLI's run on one scene at W x H, 3 frames; returns (launch
+    counts during exactly that run, bench config, steady ms/frame)."""
+    from fovtrace_torch.app import cli
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    need, frac, cfg = bench_probe_frac(scene, cam)
+    print(f"[{label}] mask covers {100 * need:.2f}% of pixels -> "
           f"ray_budget_frac {frac}")
     args = cli.build_argparser().parse_args([
-        "--device", "cuda", "--scene", "earth", "--width", str(w),
-        "--height", str(h), "--frames", "3", "--gaze", "circle",
+        "--device", DEVICE, "--scene", scene_name, "--width", str(W),
+        "--height", str(H), "--frames", "3", "--gaze", "circle",
         "--reconstruction", "atrous", "--max-depth", "4", "--gi-depth", "1",
         "--ray-budget-frac", str(frac)])
     torch.cuda.synchronize()
@@ -186,27 +273,34 @@ def main() -> int:
     img = torch.stack([out["image_rgb"].x, out["image_rgb"].y,
                        out["image_rgb"].z])
     mean = float(img.mean())
-    print(f"[main] counts during the run: {json.dumps(counts)}")
-    print(f"[main] rays_dropped per frame {stats['rays_dropped']}, "
+    print(f"[{label}] counts during the run: {json.dumps(counts)}")
+    print(f"[{label}] rays_dropped per frame {stats['rays_dropped']}, "
           f"ray_count {stats['ray_count']}, image mean {mean:.4f}, "
           f"finite {bool(torch.isfinite(img).all())}")
     assert max(stats["rays_dropped"]) == 0, "the budget truncated the mask"
     assert bool(torch.isfinite(img).all()), "non-finite image"
     assert 0.05 < mean < 0.95, f"implausible frame mean {mean}"
-    assert counts["closest_hit"] > 0 and counts["occlusion"] > 0, counts
-    assert counts["closest_hit_plain"] == 0 and counts["occlusion_plain"] == 0
-    assert counts["intersect_brute"] == 0 and counts["occlusion_brute"] == 0
+    for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
+              "occlusion_brute"):
+        assert counts[k] == 0, (k, counts)
     for f, (ms, rays) in enumerate(zip(stats["frame_ms"],
                                        stats["rays_traced"])):
-        print(f"[main] frame {f}: {ms:.2f} ms, rays_traced {rays}, "
+        print(f"[{label}] frame {f}: {ms:.2f} ms, rays_traced {rays}, "
               f"{rays / ms / 1e3:.2f} Mrays/s  [{card}]")
     steady = float(np.mean(stats["frame_ms"][1:]))
     rays = float(np.mean(stats["rays_traced"][1:]))
-    print(f"[main] earth {w}x{h} steady {steady:.2f} ms/frame, "
+    print(f"[{label}] {scene_name} {W}x{H} steady {steady:.2f} ms/frame, "
           f"{rays:.0f} rays_traced/frame, {rays / steady / 1e3:.2f} Mrays/s "
           f"[{card}]")
+    return counts, cfg, steady
 
-    # ---- 5. kernel times at the main path's shapes --------------------------
+
+def capture_inputs(scene, cam, cfg):
+    """The (closest_hit, occlusion) argument tuples of one bench frame,
+    in call order: [0] the G-buffer pass, [1] bounce 0."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.render import pipeline
+
     captured = {"closest_hit": [], "occlusion": []}
     real = {"closest_hit": ci.closest_hit, "occlusion": ci.occlusion}
 
@@ -219,50 +313,314 @@ def main() -> int:
     ci.closest_hit, ci.occlusion = recorder("closest_hit"), \
         recorder("occlusion")
     try:
-        pipeline.render_frame(scene, cam, (h // 2, w // 2),
-                              pipeline.FrameState.initial(cam, bench_cfg),
-                              bench_cfg.replace(ray_budget_frac=frac))
+        pipeline.render_frame(scene, cam, (H // 2, W // 2),
+                              pipeline.FrameState.initial(cam, cfg), cfg)
     finally:
         ci.closest_hit, ci.occlusion = real["closest_hit"], real["occlusion"]
+    return captured
+
+
+def frame_profile(label, scene, cam, cfg, steady_ms, card):
+    """Stage times of one frame (a synchronise after each stage), then a
+    torch.profiler pass over another: device kernels launched, summed
+    device time, its share of the unprofiled steady frame, top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovtrace_torch.render import pipeline
+
+    gaze = (H // 2, W // 2)
+    st = pipeline.FrameState.initial(cam, cfg)
+    _, st = pipeline.render_frame(scene, cam, gaze, st, cfg)
+    ms = {}
+    t0 = time.perf_counter()
+
+    def tick(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ms[name] = (t1 - t0) * 1e3
+        t0 = t1
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gbuf = pipeline.stage_gbuffer(scene, cam, st.prev_camera, cfg)
+    tick("gbuffer")
+    mask, _, is_valid, fetched, gaze_target, _ = pipeline.stage_sampling(
+        scene, gbuf, gaze, st, cfg)
+    tick("sampling")
+    idx, active, rank, gate = pipeline.stage_compact(mask, cfg)
+    tick("compact")
+    (rgb, alpha), _, _, _ = pipeline.stage_shade(
+        scene, cam, idx, active, fetched, is_valid, st, cfg, gaze_target,
+        rank, gate)
+    tick("shade")
+    pipeline.stage_reconstruct(rgb, alpha, gbuf, cfg)
+    tick("reconstruct")
+    print(f"[profile] {label} stages (ms, each ending in a synchronise): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; sum {sum(ms.values()):.2f}  [{card}]")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipeline.render_frame(scene, cam, gaze, st, cfg)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in kern) / 1e3
+    launched = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -dev_us(e))[:6]
+    print(f"[profile] {label} profiled frame: {launched} device kernels, "
+          f"summed device time {total:.2f} ms in a {wall:.2f} ms wall with "
+          f"the profiler on; {100 * total / steady_ms:.1f}% of the "
+          f"{steady_ms:.2f} ms steady frame  [{card}]")
+    for e in top:
+        print(f"[profile] {label}   {dev_us(e) / 1e3:8.2f} ms  {e.count:5d} x "
+              f"{e.key[:90]}")
+
+
+def time_schedule(scene, raysT, card):
+    """CUDA-event time and peak device memory of the schedule build
+    (block_liveness, then the sort) at one captured shape."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    live_ms = cuda_ms(lambda: ci.block_liveness(raysT, scene.cluster_aabb),
+                      iters=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sched_ms = cuda_ms(lambda: ci.cluster_schedule(raysT, scene.cluster_aabb),
+                       iters=5)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"[timing] cluster_schedule {raysT.shape[0]} blocks x "
+          f"{scene.cluster_aabb.shape[0]} clusters: {sched_ms:.3f} ms "
+          f"(block_liveness {live_ms:.3f} ms), peak transient {peak:.0f} MiB "
+          f"[{card}]")
+
+
+def time_kernels(scene, captured, card, errs, times, kernel_iters,
+                 plain_iters):
+    """Kernel (CUDA events), plain version and bound at the captured
+    G-buffer and bounce-0 shapes; checks kernel against plain there."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    real = {"closest_hit": ci.closest_hit, "occlusion": ci.occlusion}
     plain = {"closest_hit": ci.closest_hit_plain,
              "occlusion": ci.occlusion_plain}
-    times = {}
-    for name in ("closest_hit", "occlusion"):
+    for kind in ("closest_hit", "occlusion"):
+        name = kernel_name(kind, scene)
         for label, call in (("gbuffer", 0), ("bounce0", 1)):
-            a = captured[name][call]
-            k_ms = cuda_ms(lambda: real[name](*a), iters=20)
-            p_ms = cuda_ms(lambda: plain[name](*a), iters=3)
-            ko, po = real[name](*a), plain[name](*a)
-            if name == "closest_hit":
+            a = captured[kind][call]
+            nb = a[0].shape[0]
+            k_ms = cuda_ms(lambda: real[kind](*a), iters=kernel_iters)
+            po = None
+
+            def run_plain():
+                nonlocal po
+                po = plain[kind](*a)
+            p_ms = cuda_ms(run_plain, iters=plain_iters, warmup=0)
+            visited = torch.zeros(nb, dtype=torch.int32, device=a[0].device)
+            ko = real[kind](*a, visited=visited)
+            torch.cuda.synchronize()
+            if kind == "closest_hit":
                 flips = int(((ko[1] >= 0) != (po[1] >= 0)).sum())
+                same = float(((ko[1] == po[1]) & (po[1] >= 0)).sum()) / \
+                    max(1, int((po[1] >= 0).sum()))
                 assert flips == 0, f"{name} {label}: {flips} hit/miss flips"
+                assert same >= 0.995, f"{name} {label}: ids {same}"
+                agree = f"0 flips, identical ids {same:.5f}"
             else:
                 err = float(max((x - y).abs().max() for x, y in zip(ko, po)))
                 errs[name] = max(errs[name], err)
                 assert all(torch.allclose(x, y, rtol=1e-4, atol=1e-4)
                            for x, y in zip(ko, po)), f"{name} {label}: {err}"
-            nrays = a[0].shape[0] * ci.RAY_BLOCK
-            print(f"[timing] {name} {label} ({nrays} ray slots): kernel "
-                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms  [{card}]")
-            times[(name, label)] = (k_ms, p_ms)
+                agree = f"max |err| {err:.3e}"
+            b_ms, by, pairs, nbytes = bound(kind, a, visited)
+            print(f"[timing] {name} {label} ({nb * ci.RAY_BLOCK} ray slots, "
+                  f"{int(visited.sum())} member clusters tested, {pairs} "
+                  f"pairs, {nbytes} B): kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}), {agree}  "
+                  f"[{card}]", flush=True)
+            times[(name, label)] = (k_ms, p_ms, b_ms, by)
 
-    # ---- 6. frame parity ----------------------------------------------------
-    small = RenderConfig(width=256, height=256, ray_budget_frac=0.6,
+
+def forced_stream(earth, earth_sets, multi_cpu, dev, errs):
+    """Earth forced onto the streaming route equals the resident kernels
+    bit for bit; multi forced to M > 1 equals its plain version."""
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    saved = (ci._COEF_RESIDENT_BYTES, ci.MAX_SCHED)
+    for name, (ro, rd, tmax) in earth_sets.items():
+        raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+        sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+        a = (raysT, earth.isect_coef, sched, counts, params)
+        o = (raysT, earth.isect_coef, earth.isect_aux, sched, counts, params)
+        res = (*ci.closest_hit(*a), *ci.occlusion(*o))
+        ci._COEF_RESIDENT_BYTES = 0
+        try:
+            assert ci.route(earth.cluster_aabb.shape[0], 128) == "stream"
+            st = (*ci.closest_hit(*a), *ci.occlusion(*o))
+        finally:
+            ci._COEF_RESIDENT_BYTES = saved[0]
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(res, st)]
+        print(f"[kernels] forced-stream earth {name}: stream == resident bit "
+              f"for bit (t, idx, ar, ag, ab): {same}")
+        assert all(same), f"forced-stream earth {name}: {same}"
+    ci.MAX_SCHED, ci._COEF_RESIDENT_BYTES = 4, 0
+    try:
+        multi = multi_cpu.with_pack().to(dev)   # repack under the grouping
+        nc = multi.cluster_aabb.shape[0]
+        print(f"[kernels] forced-stream multi: NC {nc}, M "
+              f"{ci.pick_members(nc)}, route {ci.route(nc, 128)}")
+        cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                            device=dev)
+        for name, (ro, rd, tmax) in ray_sets(multi, cam, dev).items():
+            compare(f"multi M={ci.pick_members(nc)} {name}", multi, ro, rd,
+                    1e-3, tmax, dev, errs)
+    finally:
+        ci._COEF_RESIDENT_BYTES, ci.MAX_SCHED = saved
+
+
+def frame_parity(label, scene, cam):
+    """A RES x RES frame with the kernels vs with the plain versions."""
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.render import pipeline
+
+    small = RenderConfig(width=RES, height=RES, ray_budget_frac=0.6,
                          **GAZE_CFG)
     st = pipeline.FrameState.initial(cam, small)
-    ok, _ = pipeline.render_frame(scene, cam, (128, 128), st, small)
+    ci.reset_counters()
+    ok, _ = pipeline.render_frame(scene, cam, (RES // 2, RES // 2), st, small)
+    used = {k: v for k, v in ci.counters().items() if v}
+    real = ci.closest_hit, ci.occlusion
     ci.closest_hit, ci.occlusion = ci.closest_hit_plain, ci.occlusion_plain
     try:
-        op, _ = pipeline.render_frame(scene, cam, (128, 128), st, small)
+        op, _ = pipeline.render_frame(scene, cam, (RES // 2, RES // 2), st,
+                                      small)
     finally:
-        ci.closest_hit, ci.occlusion = real["closest_hit"], real["occlusion"]
+        ci.closest_hit, ci.occlusion = real
     mae = float((ok["image"] - op["image"]).abs().mean())
-    print(f"[parity] 256x256 kernels vs plain: ray_count "
+    print(f"[parity] {label} {RES}x{RES} kernels {used} vs plain: ray_count "
           f"{int(ok['ray_count'])} / {int(op['ray_count'])}, image MAE "
           f"{mae:.3e}")
     assert int(ok["ray_count"]) == int(op["ray_count"])
     assert mae < 5e-3
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "test needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from fovtrace_torch import _build
+    from fovtrace_torch.config import RenderConfig, pin_fp32
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.render import pipeline
+    from fovtrace_torch.scene import procedural
+
+    dev = torch.device(DEVICE)
+    pin_fp32(dev)
+    ph = Phases()
+    # ---- card ---------------------------------------------------------------
+    ph.start("card")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[card] {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | devices {torch.cuda.device_count()}")
+
+    # ---- build --------------------------------------------------------------
+    ph.start("build")
+    t0 = time.perf_counter()
+    ci.load_cuda_library()
+    print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.2f} s")
+    for line in _build.build_logs.get("fovtrace_cluster_isect",
+                                      "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"[build] {line.strip()}")
+
+    cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                        device=dev)
+    earth = procedural.earth_scene(dev)
+    errs: dict = {}
+
+    # ---- kernels vs plain: earth (resident) ----------------------------------
+    ph.start("kernels earth")
+    earth_sets = ray_sets(earth, cam, dev)
+    for name, (ro, rd, tmax) in earth_sets.items():
+        compare(f"earth {name}", earth, ro, rd, 1e-3, tmax, dev, errs)
+
+    # ---- forced onto the streaming route -------------------------------------
+    ph.start("kernels forced-stream")
+    forced_stream(earth, earth_sets, procedural.multi_object_scene("cpu"),
+                  dev, errs)
+
+    # ---- city build -----------------------------------------------------------
+    ph.start("city build")
+    t0 = time.perf_counter()
+    city = procedural.city_scene(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    nc, c = city.cluster_aabb.shape[0], city.isect_coef.shape[2] // 4
+    m = ci.pick_members(nc)
+    r = ci.route(nc, c)
+    t0 = time.perf_counter()
+    city.to("cpu").with_bvh()
+    bvh_s = time.perf_counter() - t0
+    print(f"[city build] {city.num_triangles} triangles, NC {nc}, c {c}, "
+          f"M {m}, NSC {nc // m}, route {r}; city_scene (mesh, BVH, leaf "
+          f"order and pack on the host CPU, upload) {build_s:.2f} s, of "
+          f"which a with_bvh over its 170k triangles takes {bvh_s:.2f} s")
+    assert (nc, m, r) == (1332, 2, "stream")
+
+    # ---- kernels vs plain: city (streaming) ----------------------------------
+    ph.start("kernels city")
+    for name, (ro, rd, tmax) in ray_sets(city, cam, dev).items():
+        compare(f"city {name}", city, ro, rd, 1e-3, tmax, dev, errs)
+
+    # ---- main paths at full size ---------------------------------------------
+    ph.start("main earth")
+    counts_e, cfg_e, steady_e = main_path("main earth", "earth", earth, cam,
+                                          card)
+    assert counts_e["closest_hit"] > 0 and counts_e["occlusion"] > 0
+    assert counts_e["closest_hit_stream"] == 0 and \
+        counts_e["occlusion_stream"] == 0
+    ph.start("main city")
+    counts_c, cfg_c, steady_c = main_path("main city", "city", city, cam,
+                                          card)
+    assert counts_c["closest_hit_stream"] > 0 and \
+        counts_c["occlusion_stream"] > 0
+    assert counts_c["closest_hit"] == 0 and counts_c["occlusion"] == 0
+    launches = {k: counts_e[k] for k in ("closest_hit", "occlusion")}
+    launches.update({k: counts_c[k] for k in ("closest_hit_stream",
+                                              "occlusion_stream")})
+
+    ph.start("profile")
+    frame_profile("earth", earth, cam, cfg_e, steady_e, card)
+    frame_profile("city", city, cam, cfg_c, steady_c, card)
+
+    # ---- kernel times at the main paths' shapes ------------------------------
+    ph.start("timing")
+    times = {}
+    time_kernels(earth, capture_inputs(earth, cam, cfg_e), card, errs, times,
+                 kernel_iters=20, plain_iters=1)
+    captured = capture_inputs(city, cam, cfg_c)
+    time_kernels(city, captured, card, errs, times, kernel_iters=20,
+                 plain_iters=1)
+    time_schedule(city, captured["closest_hit"][0][0], card)
+
+    # ---- frame parity ---------------------------------------------------------
+    ph.start("parity")
+    frame_parity("earth", earth, cam)
+    frame_parity("city", city, cam)
     golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "golden", "earth.npz")
     ref = np.load(golden)
@@ -270,7 +628,7 @@ def main() -> int:
                         max_depth=3, diffuse_max_depth=1, ray_budget_frac=0.6)
     st = pipeline.FrameState.initial(cam, gcfg)
     for _ in range(2):
-        go, st = pipeline.render_frame(scene, cam, (32, 32), st, gcfg)
+        go, st = pipeline.render_frame(earth, cam, (32, 32), st, gcfg)
     gimg = go["image"].cpu().numpy()
     want = ref["image"].astype(np.float32)
     gmae = float(np.abs(gimg - want).mean())
@@ -280,17 +638,18 @@ def main() -> int:
           f"max {gmax:.3e}")
     assert int(go["ray_count"]) == int(ref["ray_count"])
     assert gmae < 5e-3 and gmax < 0.1
+    ph.end()
 
-    src = "fovtrace_torch/csrc/cluster_isect.cu"
-    replaces = {"closest_hit": "fovtrace/kernels/pallas_isect.py:518",
-                "occlusion": "fovtrace/kernels/pallas_isect.py:806"}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": replaces[name], "launches": counts[name],
+        {"name": name, "route": "cuda", "source": SRC,
+         "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name],
          "ms": times[(name, "gbuffer")][0],
-         "plain_ms": times[(name, "gbuffer")][1]}
-        for name in ("closest_hit", "occlusion")]}))
+         "plain_ms": times[(name, "gbuffer")][1],
+         "bound_ms": times[(name, "gbuffer")][2],
+         "bound_by": times[(name, "gbuffer")][3],
+         "library_ms": None}
+        for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

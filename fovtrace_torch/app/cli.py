@@ -3,6 +3,10 @@
 Run:  python -m fovtrace_torch.app.cli --device cuda --scene earth \\
           --width 1920 --height 1088 --frames 3
 
+`--scene` takes every scene of `scene.procedural.SCENES` (box, bunny,
+city, earth, multi, vokselia); city, the 170k-triangle scene, takes the
+streaming kernels.
+
 Renders a gaze trajectory through `render.pipeline.render_frame` and
 prints steady-state ms/frame and ray throughput. Options the port does
 not run yet (the weier/author/logpolar samplers, JFA/Sibson
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from fovtrace_torch.config import RECONSTRUCTIONS, SAMPLING_MODES
+from fovtrace_torch.scene import procedural
 
 _VIEWS = {"image": "image", "depth": "depth", "albedo": "albedo",
           "weight": "weight", "shading": "shading", "saliency": "saliency",
@@ -31,7 +36,8 @@ def build_argparser() -> argparse.ArgumentParser:
         description="fovtrace_torch: foveated path tracer (PyTorch/CUDA)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:1, cpu)")
-    p.add_argument("--scene", default="earth", choices=["earth", "box"])
+    p.add_argument("--scene", default="earth",
+                   choices=sorted(procedural.SCENES))
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--frames", type=int, default=16)
@@ -89,7 +95,6 @@ def make_config(args):
 
 
 def load_scene(name: str, device, light_power: float = 810.0):
-    from fovtrace_torch.scene import procedural
     from fovtrace_torch.scene.scene import ParallelogramLight
 
     scene = procedural.SCENES[name]("cpu")

@@ -62,7 +62,7 @@ class Camera:
 
     @classmethod
     def create(cls, eye, target, up=(0.0, 1.0, 0.0), fov_y=45.0, near=0.1,
-               far=1000.0, mode=PM_PERSPECTIVE, device="cpu") -> "Camera":
+               far=1000.0, mode=PM_PERSPECTIVE, device="cuda") -> "Camera":
         f32 = lambda x: torch.as_tensor(x, dtype=torch.float32,
                                         device=device)
         return cls(eye=f32(eye), target=f32(target), up=f32(up),

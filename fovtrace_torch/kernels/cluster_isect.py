@@ -15,14 +15,20 @@ so one cluster is a [10, 4c] coefficient slab (`compute_pack`). Rays are
 packed as [NB, 16, 256] feature blocks (`pack_raysT`); per 256-ray block
 an interval-arithmetic bundle-vs-AABB test (`block_liveness`) gives the
 live clusters, sorted front to back by their entry distance
-(`cluster_schedule`). The kernels walk that schedule and stop once the
-next cluster starts beyond every ray's best hit (closest hit) or beyond
-every ray's t_max, or once every ray is fully occluded (occlusion).
+(`cluster_schedule`). Above MAX_SCHED clusters an entry is a
+supercluster of M member clusters with a per-member liveness bitmask.
+The kernels walk that schedule and stop once the next entry starts
+beyond every ray's best hit (closest hit) or beyond every ray's t_max,
+or once every ray is fully occluded (occlusion).
 
-Each kernel wrapper launches the CUDA kernel (`csrc/cluster_isect.cu`)
-on a CUDA tensor and runs the kernel's plain PyTorch version on a CPU
-tensor; any other device raises. The wrappers count their launches and
-the plain versions their calls, so a run can show which one it used.
+Two routes, as in the reference: packs up to `_COEF_RESIDENT_BYTES`
+take the resident kernels (flat schedule, M == 1), larger packs the
+streaming kernels, which double-buffer each entry's live member slabs
+(`route`). Each kernel wrapper launches the CUDA kernel of its route
+(`csrc/cluster_isect.cu`) on a CUDA tensor and runs the plain PyTorch
+version on a CPU tensor; any other device raises. The wrappers count
+their launches and the plain versions their calls, so a run can show
+which one it used.
 """
 
 from __future__ import annotations
@@ -45,6 +51,10 @@ MAX_SCHED = 1024     # cap on scheduled entries per ray block
 RAY_BLOCK = 256      # rays per schedule bundle (one CUDA block)
 NFEAT = 10           # rows of the ray feature that meet the coefficients
 KEY_MAX = (1 << 15) - 1
+
+# packs whose bf16x3 form is larger stream (see `route`); the
+# reference's threshold, pallas_isect._COEF_RESIDENT_BYTES
+_COEF_RESIDENT_BYTES = 4 * 1024 * 1024
 
 # bytes of one [B, 256, 4c] f32 product the plain versions materialize
 _PLAIN_CHUNK_BYTES = 64 << 20
@@ -272,17 +282,26 @@ def _mt_epilogue(res, tmin, tmax, c: int):
 
 def _schedule_steps(raysT, coef, schedmask, counts):
     """Yield (block ids, cluster ids, [B, 256, 4c] products) for every
-    scheduled (block, cluster) pair, in schedule order, chunked so one
-    product stays under _PLAIN_CHUNK_BYTES."""
+    scheduled (block, member cluster) pair, chunked so one product stays
+    under _PLAIN_CHUNK_BYTES. Each block sees its pairs in the kernels'
+    order: entries l = 0..count-1, and inside entry l (supercluster sc)
+    the members mi = 0..M-1 whose liveness bit is set, cluster sc*M + mi.
+    With M == 1 every entry is tested and the bitmask is not read, as in
+    the reference."""
     pin_fp32(raysT.device)
     feats = raysT[:, :NFEAT, :].transpose(1, 2)            # [NB,256,10]
     chunk = max(1, _PLAIN_CHUNK_BYTES // (RAY_BLOCK * coef.shape[2] * 4))
+    m = pick_members(coef.shape[0])
+    sw = schedmask.shape[1] // 2
     steps = int(counts.max()) if counts.numel() else 0
     for l in range(steps):
-        blocks = torch.nonzero(counts > l).squeeze(1)
-        for b in blocks.split(chunk):
-            jc = (schedmask[b, l] & 0xFFFF).long()
-            yield b, jc, torch.bmm(feats[b], coef[jc, :NFEAT, :])
+        alive = counts > l
+        for mi in range(m):
+            sel = alive if m == 1 else \
+                alive & (((schedmask[:, sw + l] >> mi) & 1) == 1)
+            for b in torch.nonzero(sel).squeeze(1).split(chunk):
+                jc = (schedmask[b, l] & 0xFFFF).long() * m + mi
+                yield b, jc, torch.bmm(feats[b], coef[jc, :NFEAT, :])
 
 
 def closest_hit_plain(raysT, coef, schedmask, counts, params):
@@ -374,15 +393,17 @@ def load_cuda_library() -> ctypes.CDLL:
                                     _nvcc_command)
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fov_closest_hit.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
-        lib.fov_closest_hit.restype = ctypes.c_int
-        lib.fov_occlusion.argtypes = [p] * 10 + [i, i, i, i, p]
-        lib.fov_occlusion.restype = ctypes.c_int
+        # data pointers, visited (may be NULL), nb, c, sw, m, stream
+        for name, nptr in (("closest_hit", 7), ("occlusion", 10)):
+            for fn in (getattr(lib, f"fov_{name}"),
+                       getattr(lib, f"fov_{name}_stream")):
+                fn.argtypes = [p] * (nptr + 1) + [i, i, i, i, p]
+                fn.restype = ctypes.c_int
         _cuda_lib = lib
     return _cuda_lib
 
 
-def _check(raysT, coef, schedmask, counts, params, aux=None):
+def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None):
     """Validate what the kernels (and their plain versions) take."""
     dev = raysT.device
     if dev.type not in ("cpu", "cuda"):
@@ -392,6 +413,8 @@ def _check(raysT, coef, schedmask, counts, params, aux=None):
             (counts, torch.int32, "counts"), (params, torch.float32, "params")]
     if aux is not None:
         want.append((aux, torch.float32, "aux"))
+    if visited is not None:
+        want.append((visited, torch.int32, "visited"))
     for t, dt, name in want:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, rays on {dev}")
@@ -408,82 +431,107 @@ def _check(raysT, coef, schedmask, counts, params, aux=None):
     c = coef.shape[2] // 4
     if aux is not None and tuple(aux.shape) != (nc, 8, c):
         raise ValueError(f"aux must be [{nc}, 8, {c}], got {tuple(aux.shape)}")
+    nsc = nc // pick_members(nc)
     if schedmask.dim() != 2 or schedmask.shape[0] != nb or \
-            schedmask.shape[1] % 2 or schedmask.shape[1] // 2 < nc:
-        raise ValueError(f"schedmask must be [{nb}, 2*SW], SW > {nc}, got "
+            schedmask.shape[1] % 2 or schedmask.shape[1] // 2 <= nsc:
+        raise ValueError(f"schedmask must be [{nb}, 2*SW], SW > {nsc}, got "
                          f"{tuple(schedmask.shape)}")
     if tuple(counts.shape) != (nb,) or tuple(params.shape) != (2,):
         raise ValueError("counts must be [NB] and params [2]")
+    if visited is not None:
+        if dev.type == "cpu":
+            raise ValueError("visited counts a CUDA kernel's work; the plain "
+                             "version walks every entry")
+        if tuple(visited.shape) != (nb,):
+            raise ValueError(f"visited must be [{nb}]")
     return nb, nc, c
 
 
-def _launch_args(nc, c):
-    m = pick_members(nc)
-    if m != 1:
+def route(nc: int, c: int) -> str:
+    """The CUDA kernels a pack of `nc` clusters of width `c` takes:
+    "stream" or "resident". A port-side copy of the reference's rule
+    (fovtrace/kernels/pallas_isect.py, `_closest_call_pre`): it streams
+    when its bf16x3 pack, [NC, 48, 4c] bf16, exceeds
+    `_COEF_RESIDENT_BYTES`, so every scene takes the counterpart of the
+    kernel the reference gives it (earth: resident; city: streaming)."""
+    if nc * 48 * 4 * c * 2 > _COEF_RESIDENT_BYTES:
+        return "stream"
+    if pick_members(nc) != 1:
+        # the reference asserts the same: resident packs are flat
         raise NotImplementedError(
-            f"{nc} clusters schedule as supercluster entries of M={m}; the "
-            "CUDA kernels take the flat (M == 1) schedule only")
-    if c > 1024:
-        raise NotImplementedError(f"cluster width {c} > 1024")
-    return torch.cuda.current_stream().cuda_stream
+            f"{nc} clusters schedule as supercluster entries of "
+            f"M={pick_members(nc)}; the resident kernels take the flat "
+            "(M == 1) schedule only")
+    return "resident"
 
 
-def closest_hit(raysT, coef, schedmask, counts, params):
+def _launch(kind, raysT, coef, schedmask, visited, *ptrs):
+    """Launch kernel `kind` ("closest_hit" or "occlusion") of the pack's
+    route on the current stream; raise on a CUDA error, count the launch.
+    `ptrs` are the kernel-specific data pointers."""
+    nb, nc, c = raysT.shape[0], coef.shape[0], coef.shape[2] // 4
+    r = route(nc, c)
+    fn = getattr(load_cuda_library(),
+                 f"fov_{kind}_stream" if r == "stream" else f"fov_{kind}")
+    err = fn(*ptrs, None if visited is None else visited.data_ptr(), nb, c,
+             schedmask.shape[1] // 2, pick_members(nc),
+             torch.cuda.current_stream(raysT.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kind} ({r}) kernel launch failed: CUDA error "
+                           f"{err}")
+    kernels.CALLS[f"{kind}_stream" if r == "stream" else kind] += 1
+
+
+def closest_hit(raysT, coef, schedmask, counts, params, visited=None):
     """Closest hit per ray: (t [NB, 256] f32, idx [NB, 256] i32, -1 on a
     miss). t is the selection distance; callers refine the winner.
 
-    Replaces `_closest_kernel` (fovtrace/kernels/pallas_isect.py), the
-    VMEM-resident M == 1 Pallas kernel. On the H100 it is bound by the
-    per-thread FMA and shared-memory load issue of the 4 x 10-term dot
-    products per (ray, triangle) pair, not by memory: each block stages
-    one cluster's 20 KB slab in shared memory and 256 rays reuse it. See
-    the kernel's source note in csrc/cluster_isect.cu."""
-    nb, nc, c = _check(raysT, coef, schedmask, counts, params)
+    Replaces `_closest_kernel` and `_closest_kernel_stream`
+    (fovtrace/kernels/pallas_isect.py), by the pack's `route`. On
+    the H100 both are bound by the per-thread FMA and shared-memory load
+    issue of the 4 x 10-term dot products per (ray, triangle) pair, not
+    by memory: a block stages each cluster's 20 KB slab in shared memory
+    and 256 rays reuse it. See the source note in csrc/cluster_isect.cu.
+    `visited`, an optional [NB] int32 CUDA tensor, receives the member
+    clusters each block tested."""
+    nb, _, _ = _check(raysT, coef, schedmask, counts, params,
+                      visited=visited)
     if raysT.device.type == "cpu":
         return closest_hit_plain(raysT, coef, schedmask, counts, params)
-    stream = _launch_args(nc, c)
     t = torch.empty((nb, RAY_BLOCK), dtype=torch.float32, device=raysT.device)
     idx = torch.empty((nb, RAY_BLOCK), dtype=torch.int32, device=raysT.device)
-    if nb == 0:
-        return t, idx
-    err = load_cuda_library().fov_closest_hit(
-        raysT.data_ptr(), coef.data_ptr(), schedmask.data_ptr(),
-        counts.data_ptr(), params.data_ptr(), t.data_ptr(), idx.data_ptr(),
-        nb, nc, c, schedmask.shape[1] // 2, stream)
-    if err != 0:
-        raise RuntimeError(f"closest_hit kernel launch failed: CUDA error {err}")
-    kernels.CALLS["closest_hit"] += 1
+    if nb:
+        _launch("closest_hit", raysT, coef, schedmask, visited,
+                raysT.data_ptr(), coef.data_ptr(), schedmask.data_ptr(),
+                counts.data_ptr(), params.data_ptr(), t.data_ptr(),
+                idx.data_ptr())
     return t, idx
 
 
-def occlusion(raysT, coef, aux, schedmask, counts, params):
+def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None):
     """RGB shadow attenuation per ray: (ar, ag, ab), each [NB, 256] f32.
 
-    Replaces `_occlusion_kernel` (fovtrace/kernels/pallas_isect.py), the
-    VMEM-resident M == 1 Pallas kernel. Bound like `closest_hit`; its
+    Replaces `_occlusion_kernel` and `_occlusion_kernel_stream`
+    (fovtrace/kernels/pallas_isect.py). Bound like `closest_hit`; its
     early exits (every ray fully occluded, or the schedule past the
     block's t_max) end most blocks after a few clusters."""
-    nb, nc, c = _check(raysT, coef, schedmask, counts, params, aux)
+    nb, _, _ = _check(raysT, coef, schedmask, counts, params, aux, visited)
     if raysT.device.type == "cpu":
         return occlusion_plain(raysT, coef, aux, schedmask, counts, params)
-    stream = _launch_args(nc, c)
     tflags = cluster_tflags(aux)
     out = torch.empty((3, nb, RAY_BLOCK), dtype=torch.float32,
                       device=raysT.device)
-    if nb == 0:
-        return out[0], out[1], out[2]
-    err = load_cuda_library().fov_occlusion(
-        raysT.data_ptr(), coef.data_ptr(), aux.data_ptr(), tflags.data_ptr(),
-        schedmask.data_ptr(), counts.data_ptr(), params.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        nb, nc, c, schedmask.shape[1] // 2, stream)
-    if err != 0:
-        raise RuntimeError(f"occlusion kernel launch failed: CUDA error {err}")
-    kernels.CALLS["occlusion"] += 1
+    if nb:
+        _launch("occlusion", raysT, coef, schedmask, visited,
+                raysT.data_ptr(), coef.data_ptr(), aux.data_ptr(),
+                tflags.data_ptr(), schedmask.data_ptr(), counts.data_ptr(),
+                params.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr())
     return out[0], out[1], out[2]
 
 
-COUNTED = ("closest_hit", "occlusion", "closest_hit_plain", "occlusion_plain",
+COUNTED = ("closest_hit", "occlusion", "closest_hit_stream",
+           "occlusion_stream", "closest_hit_plain", "occlusion_plain",
            "intersect_brute", "occlusion_brute")
 
 

@@ -1,9 +1,9 @@
 """Procedural scenes (counterpart of `fovtrace/scene/procedural.py`).
 
-The earth scene (reflective sphere, refractive box, diffuse ground) and
-the box scene. The geometry is the reference package's numpy code, so a
-scene built here is the same triangle soup, in the same leaf order, as
-the reference's.
+Every scene of the reference: box, bunny, earth, multi, vokselia and the
+170k-triangle city. The geometry is the reference package's numpy code,
+so a scene built here is the same triangle soup, in the same leaf order,
+as the reference's.
 """
 
 from __future__ import annotations
@@ -84,6 +84,72 @@ def uv_sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0), lat: int = 32,
             np.asarray(normals, np.float32), np.asarray(uvs, np.float32))
 
 
+def icosphere(radius: float = 1.0, center=(0.0, 0.0, 0.0), subdiv: int = 3):
+    """Subdivided icosahedron (the "bunny" stand-in)."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+         [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+         [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = list(map(tuple, verts))
+    cache = {}
+
+    def midpoint(a, b):
+        key = (min(a, b), max(a, b))
+        if key in cache:
+            return cache[key]
+        m = np.asarray(verts[a]) + np.asarray(verts[b])
+        m /= np.linalg.norm(m)
+        verts.append(tuple(m))
+        cache[key] = len(verts) - 1
+        return cache[key]
+
+    for _ in range(subdiv):
+        new_faces = []
+        for (a, b, c) in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new_faces
+
+    v = np.asarray(verts, np.float32)
+    n = v.copy()
+    v = v * radius + np.asarray(center, np.float32)
+    u = 0.5 + np.arctan2(n[:, 2], n[:, 0]) / (2 * np.pi)
+    w = 0.5 - np.arcsin(np.clip(n[:, 1], -1, 1)) / np.pi
+    return (v, np.asarray(faces, np.int64), n,
+            np.stack([u, w], axis=1).astype(np.float32))
+
+
+def voxel_world(seed: int = 7, extent: int = 6, base_y: float = 0.0):
+    """Blocky terrain of 0.5-unit boxes on a 2*extent square grid, 1-4
+    boxes tall (the vokselia_spawn stand-in)."""
+    rng = np.random.default_rng(seed)
+    meshes = []
+    for ix in range(-extent, extent):
+        for iz in range(-extent, extent):
+            h = int(1 + 2.5 * (np.sin(ix * 0.7) * np.cos(iz * 0.5) * 0.5 + 0.5)
+                    + rng.integers(0, 2))
+            for iy in range(h):
+                meshes.append(box((0.5, 0.5, 0.5),
+                                  (ix * 0.5 + 0.25, base_y + iy * 0.5 + 0.25,
+                                   iz * 0.5 + 0.25)))
+    vs, ts, ns, uvs = [], [], [], []
+    off = 0
+    for v, t, n, uv in meshes:
+        vs.append(v)
+        ts.append(t + off)
+        ns.append(n)
+        uvs.append(uv)
+        off += v.shape[0]
+    return (np.concatenate(vs), np.concatenate(ts), np.concatenate(ns),
+            np.concatenate(uvs))
+
+
 def checker_envmap(h: int = 64, w: int = 128, bright: float = 1.0):
     """Procedural lat-long sky: horizon gradient plus a sun disc."""
     ys = np.linspace(0, 1, h)[:, None]
@@ -120,13 +186,20 @@ def _mesh(parts, mat_id):
             "uvs": uv}
 
 
-def box_scene(device="cpu") -> Scene:
+def box_scene(device="cuda") -> Scene:
     """Ground plane and a diffuse box."""
     return _assemble([_mesh(plane(8.0, 0.0), 0),
                       _mesh(box((1.0, 1.0, 1.0), (0.0, 0.5, 0.0)), 1)], device)
 
 
-def earth_scene(device="cpu") -> Scene:
+def bunny_scene(device="cuda") -> Scene:
+    """Refractive icosphere ("bunny") and ground."""
+    return _assemble([_mesh(plane(8.0, 0.0), 0),
+                      _mesh(icosphere(0.6, (0.0, 0.8, 0.0), subdiv=3), 3)],
+                     device)
+
+
+def earth_scene(device="cuda") -> Scene:
     """Reflective "earth" sphere, refractive box and ground (5,616
     triangles with padding)."""
     return _assemble([_mesh(plane(8.0, 0.0), 0),
@@ -135,4 +208,34 @@ def earth_scene(device="cpu") -> Scene:
                      device)
 
 
-SCENES = {"box": box_scene, "earth": earth_scene}
+def multi_object_scene(device="cuda") -> Scene:
+    """Every material kind together: diffuse box, reflective sphere,
+    refractive icosphere, ground."""
+    return _assemble([_mesh(plane(8.0, 0.0), 0),
+                      _mesh(box((1.0, 1.0, 1.0), (1.5, 0.5, -0.5)), 1),
+                      _mesh(uv_sphere(0.7, (0.0, 0.9, 0.8), lat=24, lon=48), 2),
+                      _mesh(icosphere(0.5, (-1.6, 0.7, 0.6), subdiv=3), 3)],
+                     device)
+
+
+def vokselia_scene(device="cuda", extent: int = 6) -> Scene:
+    """Voxel world (the vokselia_spawn stand-in) on a ground plane."""
+    return _assemble([_mesh(plane(10.0, 0.0), 0),
+                      _mesh(voxel_world(extent=extent), 1)], device)
+
+
+def city_scene(device="cuda") -> Scene:
+    """The large scene: a 64x64-column voxel city with the earth scene's
+    sphere and box, 170,368 triangles after padding, 1,332 clusters of
+    128. Its pack is far over the 4 MiB residency threshold, so it takes
+    the streaming kernels with two clusters per schedule entry."""
+    return _assemble([_mesh(plane(40.0, 0.0), 0),
+                      _mesh(voxel_world(extent=32), 1),
+                      _mesh(uv_sphere(0.8, (0.0, 2.2, 0.0), lat=48, lon=96), 2),
+                      _mesh(box((0.8, 0.8, 0.8), (-2.0, 0.4, 1.2)), 3)],
+                     device)
+
+
+SCENES = {"box": box_scene, "bunny": bunny_scene, "earth": earth_scene,
+          "multi": multi_object_scene, "vokselia": vokselia_scene,
+          "city": city_scene}

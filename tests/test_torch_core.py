@@ -64,7 +64,7 @@ def test_pixel_seed_bit_exact():
 def test_camera_rays_and_reprojection(pose):
     w, h = 48, 32
     cj = JCamera.create(eye=pose[0], target=pose[1])
-    ct = Camera.create(eye=pose[0], target=pose[1])
+    ct = Camera.create(eye=pose[0], target=pose[1], device="cpu")
     np.testing.assert_allclose(ct.inv_mvp(w / h).numpy(),
                                np.asarray(cj.inv_mvp(w / h)), rtol=1e-5,
                                atol=1e-6)
@@ -91,7 +91,7 @@ def test_thin_lens_perturb():
     d[2] = -np.abs(d[2]) - 1.0
     u1, u2 = r.random((2, 256)).astype(np.float32)
     cj = JCamera.create(eye=POSES[0][0], target=POSES[0][1])
-    ct = Camera.create(eye=POSES[0][0], target=POSES[0][1])
+    ct = Camera.create(eye=POSES[0][0], target=POSES[0][1], device="cpu")
     lj, nj = cj.thin_lens_perturb_v(jvec.normalize(jvec.Vec3(*map(jnp.asarray, d))),
                                     4.5, 0.05, jnp.asarray(u1), jnp.asarray(u2))
     lt, nt = ct.thin_lens_perturb_v(vec.normalize(vec.Vec3(*map(torch.as_tensor, d))),

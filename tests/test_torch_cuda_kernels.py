@@ -1,5 +1,8 @@
 """The CUDA cluster kernels against their plain PyTorch versions, on the
-card (earth scene, seeded rays). Marked `cuda`; skipped without a GPU.
+card: the resident kernels on earth, the streaming kernels on the city
+scene (M = 2), on earth forced to stream (bit for bit equal to the
+resident kernels) and on multi forced to M = 16. Seeded rays. Marked
+`cuda`; skipped without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -28,6 +31,11 @@ def dev():
 @pytest.fixture(scope="module")
 def earth(dev):
     return procedural.earth_scene(dev)
+
+
+@pytest.fixture(scope="module")
+def city(dev):
+    return procedural.city_scene(dev)
 
 
 def _ray_sets(scene, dev):
@@ -83,3 +91,79 @@ def test_kernel_wrappers_refuse_mixed_devices(earth, dev):
     sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
     with pytest.raises(ValueError, match="coef"):
         ci.closest_hit(raysT, earth.isect_coef.cpu(), sched, counts, params)
+
+
+def _both(scene, raysT, sched, counts, params):
+    """(closest_hit, occlusion) of the scene's route on the card."""
+    ch = ci.closest_hit(raysT, scene.isect_coef, sched, counts, params)
+    oc = torch.stack(ci.occlusion(raysT, scene.isect_coef, scene.isect_aux,
+                                  sched, counts, params))
+    torch.cuda.synchronize()
+    return ch, oc
+
+
+def _assert_matches_plain(scene, raysT, sched, counts, params, ch, oc):
+    tp, ip = ci.closest_hit_plain(raysT, scene.isect_coef, sched, counts,
+                                  params)
+    tk, ik = ch
+    hit = ip >= 0
+    assert torch.equal(ik >= 0, hit), "hit/miss flips"
+    assert int((ik == ip)[hit].sum()) >= 0.995 * int(hit.sum())
+    torch.testing.assert_close(tk[hit], tp[hit], rtol=1e-5, atol=1e-5)
+    op = torch.stack(ci.occlusion_plain(raysT, scene.isect_coef,
+                                        scene.isect_aux, sched, counts,
+                                        params))
+    torch.testing.assert_close(oc, op, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rays", ["random", "primary", "ragged"])
+def test_stream_kernels_match_plain_on_city(city, dev, rays):
+    nc, c = city.cluster_aabb.shape[0], city.isect_coef.shape[2] // 4
+    assert ci.route(nc, c) == "stream" and ci.pick_members(nc) == 2
+    ro, rd, tmax = _ray_sets(city, dev)[rays]
+    raysT, n = ci.pack_raysT(ro, rd, 1e-3, tmax)
+    sched, counts, params = ci.cluster_schedule(raysT, city.cluster_aabb)
+    ci.reset_counters()
+    ch, oc = _both(city, raysT, sched, counts, params)
+    got = ci.counters()
+    assert got["closest_hit_stream"] == 1 and got["occlusion_stream"] == 1
+    assert got["closest_hit"] == 0 and got["occlusion"] == 0
+    _assert_matches_plain(city, raysT, sched, counts, params, ch, oc)
+
+
+def test_forced_stream_equals_resident_on_earth(earth, dev, monkeypatch):
+    ro, rd, tmax = _ray_sets(earth, dev)["primary"]
+    raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+    sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+    (tr, ir), orr = _both(earth, raysT, sched, counts, params)
+    monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
+    ci.reset_counters()
+    (ts, is_), os_ = _both(earth, raysT, sched, counts, params)
+    assert ci.counters()["closest_hit_stream"] == 1
+    assert torch.equal(ts, tr) and torch.equal(is_, ir)
+    assert torch.equal(os_, orr)
+
+
+def test_forced_supercluster_stream_matches_plain(dev, monkeypatch):
+    multi = procedural.multi_object_scene("cpu")
+    monkeypatch.setattr(ci, "MAX_SCHED", 4)
+    monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
+    multi = multi.with_pack().to(dev)       # repack under the new grouping
+    assert ci.pick_members(multi.cluster_aabb.shape[0]) == 16
+    ro, rd, tmax = _ray_sets(multi, dev)["random"]
+    raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+    sched, counts, params = ci.cluster_schedule(raysT, multi.cluster_aabb)
+    ch, oc = _both(multi, raysT, sched, counts, params)
+    _assert_matches_plain(multi, raysT, sched, counts, params, ch, oc)
+
+
+def test_stream_wrappers_refuse_mixed_devices(city, dev):
+    ro, rd, tmax = _ray_sets(city, dev)["random"]
+    raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+    sched, counts, params = ci.cluster_schedule(raysT, city.cluster_aabb)
+    with pytest.raises(ValueError, match="aux"):
+        ci.occlusion(raysT, city.isect_coef, city.isect_aux.cpu(), sched,
+                     counts, params)
+    with pytest.raises(ValueError, match="visited"):
+        ci.closest_hit(raysT, city.isect_coef, sched, counts, params,
+                       visited=counts.cpu())

@@ -121,7 +121,7 @@ def test_frame_matches_golden(device, earth_cpu):
 def test_render_sequence_threads_state():
     scene = procedural.box_scene("cpu")
     config = RenderConfig(width=32, height=32, max_depth=2)
-    cams = [Camera.create(eye=EYE, target=TARGET)] * 2
+    cams = [Camera.create(eye=EYE, target=TARGET, device="cpu")] * 2
     gazes = [(16, 16), (10, 20)]
     frames, state = pipeline.render_sequence(scene, cams, gazes, config)
     st = pipeline.FrameState.initial(cams[0], config)

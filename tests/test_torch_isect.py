@@ -184,6 +184,49 @@ def test_brute_matches_brute(scenes, name):
                                np.asarray(oj), rtol=1e-5, atol=1e-6)
 
 
+def test_plain_supercluster_matches_pallas_stream(monkeypatch):
+    """M > 1: the plain versions walk the two-level schedule (member
+    bitmask) as the reference's streaming kernels do. Forced on the multi
+    scene as tests/test_pallas_isect.py forces it: MAX_SCHED = 4 and a
+    zero residency threshold, on both sides, then a repack."""
+    sj, st = jprocedural.multi_object_scene(), procedural.multi_object_scene(
+        "cpu")
+    ro, rd = _primary(24)
+    for mod in (pallas_isect, ci):
+        monkeypatch.setattr(mod, "MAX_SCHED", 4)
+        monkeypatch.setattr(mod, "_COEF_RESIDENT_BYTES", 0)
+    pallas_isect._closest_call_pre.clear_cache()
+    pallas_isect._occlusion_call_pre.clear_cache()
+    try:
+        sj2, st2 = sj.with_pack(), st.with_pack()
+        nc = st2.cluster_aabb.shape[0]
+        assert ci.pick_members(nc) == pallas_isect.pick_members(nc) == 16
+        np.testing.assert_array_equal(st2.isect_coef.numpy(),
+                                      np.asarray(sj2.isect_coef))
+        hp = pallas_isect.intersect_pallas(sj2, _jv(ro), _jv(rd), 1e-3, BIG_T)
+        hr = jisect.refine_hit(sj2, jnp.asarray(ro), jnp.asarray(rd), hp)
+        op = pallas_isect.occlusion_pallas(sj2, _jv(ro), _jv(rd), 1e-3, BIG_T)
+    finally:
+        pallas_isect._closest_call_pre.clear_cache()
+        pallas_isect._occlusion_call_pre.clear_cache()
+    ci.reset_counters()
+    ht = isect.intersect_v(st2, _tv(ro), _tv(rd), 1e-3, BIG_T,
+                           backend="cluster")
+    ot = isect.occlusion_v(st2, _tv(ro), _tv(rd), 1e-3, BIG_T,
+                           backend="cluster")
+    assert ci.counters()["closest_hit_plain"] == 1
+    assert ci.counters()["occlusion_plain"] == 1
+    tp, tt = np.asarray(hp.tri), ht.tri.numpy()
+    hit = tp >= 0
+    assert ((tt >= 0) == hit).all(), "hit/miss flips"
+    assert (hit & (tp == tt)).sum() >= hit.sum() * 0.995
+    np.testing.assert_allclose(ht.t.numpy()[hit], np.asarray(hr.t)[hit],
+                               rtol=1e-3, atol=1e-4)
+    for a, b in zip(ot, op):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_wrappers_validate_inputs(scenes):
     _, st = scenes["box"]
     ro, rd = _primary(16)
@@ -202,3 +245,9 @@ def test_wrappers_validate_inputs(scenes):
     with pytest.raises(ValueError, match="raysT"):
         ci.closest_hit(raysT[:, :12].contiguous(), coef, sched, counts,
                        params)
+    with pytest.raises(ValueError, match="schedmask"):
+        ci.closest_hit(raysT, coef, sched[:, :2].contiguous(), counts,
+                       params)
+    with pytest.raises(ValueError, match="visited"):
+        ci.closest_hit(raysT, coef, sched, counts, params,
+                       visited=torch.zeros_like(counts))

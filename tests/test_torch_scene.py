@@ -45,7 +45,7 @@ def _assert_same(a: dict, b: dict):
             assert x == y, k
 
 
-@pytest.mark.parametrize("name", ["earth", "box"])
+@pytest.mark.parametrize("name", ["earth", "box", "bunny", "multi", "vokselia"])
 def test_port_scene_equals_converted_reference(name):
     ref = convert.to_numpy(jprocedural.SCENES[name]())
     port = procedural.SCENES[name]("cpu")
@@ -80,6 +80,30 @@ def test_config_refuses_unported_modes():
         RenderConfig(reconstruction="sibson")
 
 
+def test_scene_names_match_reference():
+    assert sorted(procedural.SCENES) == sorted(jprocedural.SCENES)
+    from fovtrace_torch.app import cli
+    args = cli.build_argparser().parse_args(["--scene", "city"])
+    assert args.scene == "city"
+
+
+def test_entry_points_default_to_the_card():
+    """Scenes and cameras are made on the card unless the caller asks for
+    the CPU; without a card they raise rather than fall back."""
+    import inspect
+
+    from fovtrace_torch.core.camera import Camera
+
+    for fn in list(procedural.SCENES.values()) + [Camera.create]:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert Camera.create(eye=(1, 2, 3), target=(0, 0, 0)).device.type \
+            == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            Camera.create(eye=(1, 2, 3), target=(0, 0, 0))
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -87,6 +111,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(fovtrace_torch.__path__, "
         "'fovtrace_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fovtrace'))\n"
         "assert not bad, bad\n"
