@@ -25,10 +25,23 @@ non-zero):
   timing         each kernel, its plain version and its bound at the
                  main path's shapes: the 1920x1088 G-buffer and the
                  bounce-0 front of the earth (resident) and city
-                 (streaming) frames
+                 (streaming) frames; then each kernel's launches x
+                 (kernel - bound), the order of the redesign
+  probe micro    the six microbenchmark kernels (csrc/probes.cu) against
+                 their plain versions at the script's 2,097,152 earth
+                 primary rays (loop and slab bit for bit); each one's
+                 time, bound and ns per live (block, entry) step, beside
+                 closest_kernel's ns per visited cluster on the earth
+                 G-buffer
+  probe dma      the schedule-row copy probe at the script's size against
+                 its numpy check and the plain version, then at the city
+                 G-buffer's schedule (8,160 blocks, SW 768) against the
+                 plain version, timed against its bytes bound
   parity         256x256 frames with the kernels vs with the plain
                  versions (earth, city); a 64x64 earth frame vs
                  tests/golden/earth.npz
+Neither probe runs on a render path: their kernels' launches on the main
+paths are 0.
 The line before last is the card's name and power limit, the one before
 it the kernels' JSON line, and the last line is the JSON result.
 """
@@ -40,6 +53,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -51,20 +65,33 @@ W, H = 1920, 1088      # the main paths' frame
 RES = 256              # the kernel checks' and parity frames' side
 NCHK = 4096            # seeded random rays per kernel check
 SRC = "fovtrace_torch/csrc/cluster_isect.cu"
+PROBE_SRC = "fovtrace_torch/csrc/probes.cu"
 REPLACES = {"closest_hit": "fovtrace/kernels/pallas_isect.py:518",
             "occlusion": "fovtrace/kernels/pallas_isect.py:806",
             "closest_hit_stream": "fovtrace/kernels/pallas_isect.py:577",
-            "occlusion_stream": "fovtrace/kernels/pallas_isect.py:850"}
+            "occlusion_stream": "fovtrace/kernels/pallas_isect.py:850",
+            "micro_inner": "scripts/microbench_inner.py:70",
+            "smem_dma": "scripts/probe_smem_dma.py:23"}
 KERNELS = tuple(REPLACES)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
-# and HBM3 bandwidth
+# dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # operations per (ray, triangle) pair: the four 10-term dot products
 # (40 FMAs = 80) and the epilogue's 13: ud, vd, det*det, ud + vd, |det|,
 # 1/det, t_num * inv_det and 6 compares (|det| > eps, ud >= 0, vd >= 0,
 # ud + vd <= det^2, t > t_min, t < t_max)
 OPS_PER_PAIR = 93
+# the microbenchmark's operations per ray and step: the slab test (6
+# subtractions, 6 multiplies, 6 min/max of the slab ends, 6 of tenter and
+# texit, 1 compare) and the halving; per (ray, triangle) pair, the four
+# 10-term dot products (80; rows 10-15 of the pack are zero) and a
+# 4-way running min (mm) or k_full's epilogue (ud, vd, det*det, ud + vd,
+# |det|, t_num / det, 5 compares, the running min: 12)
+OPS_SLAB = 26
+OPS_MM_PAIR = 84
+OPS_FULL_PAIR = 92
 
 
 def card_line() -> str:
@@ -232,6 +259,15 @@ def bound(kind, args, visited):
     return max(t_ops, t_bytes), by, pairs, nbytes
 
 
+def probe_calls() -> dict:
+    """Launches of the probe kernels and calls of their plain versions
+    since the counters were last reset."""
+    from fovtrace_torch import kernels
+
+    return {k: v for k, v in kernels.CALLS.items()
+            if k.startswith(("micro_", "smem_dma"))}
+
+
 def bench_probe_frac(scene, cam):
     """bench.py's budget sizing: one probe frame; if the mask is denser
     than the budget, raise the fraction to cover it plus 2%."""
@@ -283,6 +319,7 @@ def main_path(label, scene_name, scene, cam, card):
     for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
               "occlusion_brute"):
         assert counts[k] == 0, (k, counts)
+    assert not probe_calls(), probe_calls()
     for f, (ms, rays) in enumerate(zip(stats["frame_ms"],
                                        stats["rays_traced"])):
         print(f"[{label}] frame {f}: {ms:.2f} ms, rays_traced {rays}, "
@@ -446,7 +483,179 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                   f"pairs, {nbytes} B): kernel {k_ms:.3f} ms, plain "
                   f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}), {agree}  "
                   f"[{card}]", flush=True)
-            times[(name, label)] = (k_ms, p_ms, b_ms, by)
+            times[(name, label)] = (k_ms, p_ms, b_ms, by, int(visited.sum()))
+
+
+def micro_bound(variant, inp, steps):
+    """(bound_ms, bound_by) of one microbenchmark variant on `inp`: its
+    operations (per live step, and per (ray, triangle) pair of the
+    `steps` that ran the dot products) over the float32 peak (mm_bf16's
+    bf16 dot products over the bf16 peak, added), against the bytes it
+    must move over the HBM rate: counts, the live schedule entries and
+    the output once, the [N, 16] ray rows and the AABBs for all but
+    loop, rows 0-9 of every cluster's coefficients for the matmul
+    variants."""
+    live = int(inp.counts.sum())
+    n = inp.rays.shape[0]
+    nbytes = inp.nb * 4 + live * 4 + n * 4
+    ops = live * 256
+    t_bf16 = 0.0
+    if variant != "loop":
+        nbytes += inp.rays.numel() * 4 + inp.cb_flat.numel() * 4
+    if variant in ("slab", "full"):
+        ops = live * 256 * OPS_SLAB
+    coef = inp.coef(variant)
+    if coef is not None:
+        nbytes += inp.nc * 10 * 4 * inp.c * coef.element_size()
+        per_pair = OPS_FULL_PAIR if variant == "full" else OPS_MM_PAIR
+        pairs = steps * 256 * inp.c
+        if variant == "mm_bf16":
+            t_bf16 = pairs * 80 / PEAK_BF16 * 1e3
+            per_pair -= 80
+        ops += pairs * per_pair
+    t_ops = ops / PEAK_F32 * 1e3 + t_bf16
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def probe_micro(earth, card, times, results):
+    """The microbenchmark at the script's size: each variant against its
+    plain version, then its time, bound and ns per live step, beside
+    closest_kernel's ns per visited cluster on the earth G-buffer."""
+    from fovtrace_torch.scripts import MICRO_VARIANTS
+    from fovtrace_torch.scripts import microbench_inner as mb
+
+    inp = mb.build_inputs(earth)
+    live = int(inp.counts.sum())
+    print(f"[probe micro] nb={inp.nb} nc={inp.nc} c={inp.c} live={live} "
+          f"({inp.rays.shape[0]} rays, {live / inp.nb:.2f} live clusters "
+          f"per block)")
+    for v in MICRO_VARIANTS:
+        args = inp.args(v)
+        stats, po = {}, None
+
+        def run_plain():
+            nonlocal po
+            po = mb.plain(v, *args, stats=stats)
+        p_ms = cuda_ms(run_plain, iters=1, warmup=0)
+        ko = mb.run_variant(v, *args)
+        torch.cuda.synchronize()
+        assert ko.shape == po.shape == (inp.rays.shape[0], 1)
+        assert bool(torch.isfinite(ko).all()), f"{v}: non-finite output"
+        if v in ("loop", "slab"):
+            # integer sums and halvings: exact in any order
+            err = float((ko - po).abs().max())
+            assert torch.equal(ko, po), f"{v}: not bit-equal, {err}"
+            agree = "bit-equal"
+        elif v == "full":
+            # the kernel contracts 10 rows in FMA, the plain version 16 in
+            # cuBLAS: t within rtol 1e-3 / atol 1e-4 (the closest-hit
+            # gate), at most 0.5% hit/miss flips
+            hk, hp = ko < 1e30, po < 1e30
+            flips = int((hk != hp).sum())
+            both = hk & hp
+            err = float((ko - po)[both].abs().max())
+            assert flips <= 0.005 * ko.numel(), f"full: {flips} flips"
+            assert bool(torch.allclose(ko[both], po[both], rtol=1e-3,
+                                       atol=1e-4)), f"full: t off by {err}"
+            agree = (f"{flips} flips, {int(hp.sum())} hits, t max |err| "
+                     f"{err:.3e}, {stats['steps']} steps past the cull")
+        else:
+            # float32 sums of 10 (kernel) and 16 (plain) terms in another
+            # order, |values| below ~100: rtol 1e-4 / atol 1e-4
+            err = float((ko - po).abs().max())
+            assert bool(torch.allclose(ko, po, rtol=1e-4, atol=1e-4)), \
+                f"{v}: off by {err}"
+            agree = f"max |err| {err:.3e}"
+        k_ms = cuda_ms(lambda: mb.run_variant(v, *args), iters=20)
+        b_ms, by = micro_bound(v, inp, stats.get("steps", 0))
+        print(f"[probe micro] {v:8s} kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), "
+              f"{k_ms * 1e6 / live:.3f} ns per live step, {agree}  [{card}]",
+              flush=True)
+        results[v] = (k_ms, p_ms, b_ms, by, err)
+    k_ms, visited = times[("closest_hit", "gbuffer")][0], \
+        times[("closest_hit", "gbuffer")][4]
+    print(f"[probe micro] closest_hit earth G-buffer: {k_ms:.4f} ms over "
+          f"{visited} visited clusters, {k_ms * 1e6 / visited:.3f} ns per "
+          f"visited cluster  [{card}]")
+
+
+def probe_dma(city_gbuffer, card):
+    """The schedule-row copy probe: the script's size against its numpy
+    check and the plain version, then the city G-buffer's schedule rows
+    (its real counts and entries, seeded table) against the plain
+    version, timed against its bytes bound. Returns (kernel ms, plain
+    ms, bound ms, bound_by, library ms, max |err|) at the city shape."""
+    import torch.nn.functional as F
+
+    from fovtrace_torch.scripts import probe_smem_dma as dma
+
+    dev = torch.device(DEVICE)
+    arrays = dma.make_inputs()
+    small = [torch.from_numpy(a).to(dev) for a in arrays]
+    ko = dma.smem_dma(*small)
+    po = dma.plain(*small)
+    torch.cuda.synchronize()
+    n_err = float(np.abs(ko.cpu().numpy()
+                         - dma.numpy_reference(*arrays)).max())
+    err = float((ko - po).abs().max())
+    print(f"[probe dma] script size (NB {dma.NB}, NSC {dma.NSC}, SW "
+          f"{dma.NSC_PAD}): max err vs the numpy check {n_err:.3e}, vs "
+          f"plain {err:.3e}")
+    assert n_err < 1e-3, "MISMATCH against the script's numpy check"
+    assert torch.equal(ko, po), "smem_dma differs from its plain version"
+
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    raysT, coef, schedmask, counts, _ = city_gbuffer
+    sw = schedmask.shape[1] // 2
+    nsc = coef.shape[0] // ci.pick_members(coef.shape[0])
+    sched = schedmask[:, :sw].contiguous()
+    rng = np.random.default_rng(SEED)
+    table = torch.from_numpy(rng.normal(size=(nsc, dma.R))
+                             .astype(np.float32)).to(dev)
+    args = (counts, sched, raysT, table)
+    po = None
+
+    def run_plain():
+        nonlocal po
+        po = dma.plain(*args)
+    p_ms = cuda_ms(run_plain, iters=1, warmup=0)
+    ko = dma.smem_dma(*args)
+    torch.cuda.synchronize()
+    err = max(err, float((ko - po).abs().max()))
+    assert torch.equal(ko, po), "smem_dma differs from its plain version"
+    k_ms = cuda_ms(lambda: dma.smem_dma(*args), iters=20)
+    # the bytes it must move: counts, the live entries, ray row 0 of each
+    # block, the table and the output once; a multiply and an add per
+    # live entry and lane
+    nb, live = counts.shape[0], int(counts.sum())
+    nbytes = nb * 4 + live * 4 + 2 * nb * dma.R * 4 + table.numel() * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = live * dma.R * 2 / PEAK_F32 * 1e3
+    b_ms, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+    # yardstick: one embedding_bag with per-sample weights computes the
+    # weighted row sums (all but the final + rays[b, 0, :])
+    live_m = torch.arange(sw, device=dev)[None, :] < counts[:, None]
+    ents = sched[live_m]
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts.long()
+    ids = (ents % 65536).long()
+    w = torch.div(ents, 65536, rounding_mode="floor").to(torch.float32)
+    bag = lambda: F.embedding_bag(ids, table, offsets, mode="sum",
+                                  per_sample_weights=w)
+    lib_ms = cuda_ms(bag, iters=20)
+    lib_err = float((bag() + raysT[:, 0, :] - po).abs().max()
+                    / po.abs().max())
+    print(f"[probe dma] city G-buffer rows (NB {nb}, NSC {nsc}, SW {sw}, "
+          f"{live} live entries, {nbytes} B): kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), embedding_bag "
+          f"{lib_ms:.4f} ms (its sums + row 0 vs plain: max |err| / max "
+          f"|out| {lib_err:.1e}), kernel bit-equal to plain  [{card}]",
+          flush=True)
+    return k_ms, p_ms, b_ms, by, lib_ms, err
 
 
 def forced_stream(earth, earth_sets, multi_cpu, dev, errs):
@@ -526,6 +735,7 @@ def main() -> int:
     from fovtrace_torch.kernels import cluster_isect as ci
     from fovtrace_torch.render import pipeline
     from fovtrace_torch.scene import procedural
+    from fovtrace_torch.scripts import load_probe_library
 
     dev = torch.device(DEVICE)
     pin_fp32(dev)
@@ -540,12 +750,16 @@ def main() -> int:
     # ---- build --------------------------------------------------------------
     ph.start("build")
     t0 = time.perf_counter()
-    ci.load_cuda_library()
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(ci.load_cuda_library),
+                  pool.submit(load_probe_library)]:
+            f.result()
     print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("fovtrace_cluster_isect",
-                                      "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build] {line.strip()}")
+    for lib in ("fovtrace_cluster_isect", "fovtrace_probes"):
+        for line in _build.build_logs.get(lib, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {lib}: {line.strip()}")
 
     cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
                         device=dev)
@@ -602,6 +816,7 @@ def main() -> int:
     launches = {k: counts_e[k] for k in ("closest_hit", "occlusion")}
     launches.update({k: counts_c[k] for k in ("closest_hit_stream",
                                               "occlusion_stream")})
+    launches.update(micro_inner=0, smem_dma=0)   # no render path runs them
 
     ph.start("profile")
     frame_profile("earth", earth, cam, cfg_e, steady_e, card)
@@ -616,6 +831,37 @@ def main() -> int:
     time_kernels(city, captured, card, errs, times, kernel_iters=20,
                  plain_iters=1)
     time_schedule(city, captured["closest_hit"][0][0], card)
+    # the redesign order: what each kernel loses to its bound per 3-frame
+    # run, launches x the mean of (kernel - bound) over its two shapes
+    loss = {name: launches[name] * sum(times[(name, s)][0] - times[(name, s)][2]
+                                       for s in ("gbuffer", "bounce0")) / 2
+            for name in KERNELS[:4]}
+    print("[timing] launches x (kernel - bound), mean of the G-buffer and "
+          "bounce-0 shapes: " + ", ".join(
+              f"{n} {ms:.1f} ms" for n, ms in sorted(loss.items(),
+                                                     key=lambda kv: -kv[1]))
+          + f"  [{card}]")
+
+    # ---- the probes: the last two TPU kernels' counterparts ----------------
+    ph.start("probe micro")
+    ci.reset_counters()
+    micro = {}
+    probe_micro(earth, card, times, micro)
+    ph.start("probe dma")
+    dma_res = probe_dma(captured["closest_hit"][0], card)
+    probe_counts = probe_calls()
+    print(f"[probe dma] launches in the probe phases: "
+          f"{json.dumps(probe_counts)}")
+    for k in [f"micro_{v}" for v in micro] + ["micro_plain", "smem_dma",
+                                               "smem_dma_plain"]:
+        assert probe_counts.get(k, 0) >= 1, (k, probe_counts)
+    # the JSON line's (ms, plain_ms, bound_ms, bound_by): the G-buffer
+    # shape for the render kernels, `full` and the city rows for the probes
+    row = {name: times[(name, "gbuffer")][:4] for name in KERNELS[:4]}
+    row["micro_inner"], errs["micro_inner"] = micro["full"][:4], \
+        micro["full"][4]
+    row["smem_dma"], errs["smem_dma"] = dma_res[:4], dma_res[5]
+    library = {"smem_dma": dma_res[4]}
 
     # ---- frame parity ---------------------------------------------------------
     ph.start("parity")
@@ -641,14 +887,13 @@ def main() -> int:
     ph.end()
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SRC,
+        {"name": name, "route": "cuda",
+         "source": PROBE_SRC if name in ("micro_inner", "smem_dma") else SRC,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name],
-         "ms": times[(name, "gbuffer")][0],
-         "plain_ms": times[(name, "gbuffer")][1],
-         "bound_ms": times[(name, "gbuffer")][2],
-         "bound_by": times[(name, "gbuffer")][3],
-         "library_ms": None}
+         "ms": row[name][0], "plain_ms": row[name][1],
+         "bound_ms": row[name][2], "bound_by": row[name][3],
+         "library_ms": library.get(name)}
         for name in KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

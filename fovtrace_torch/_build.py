@@ -5,7 +5,8 @@ Each library is compiled from sources in the checkout into
 of its sources and compiler command, so an edited source (or flag) gets
 a fresh build and an unchanged one is reused. The compile writes to a
 temporary name and renames it into place, so concurrent processes never
-load a half-written library.
+load a half-written library. Each library has its own lock, so threads
+building different libraries run their compilers at the same time.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Callable, Dict, List, Sequence
 REPO_ROOT = Path(__file__).resolve().parent.parent
 BUILD_DIR = REPO_ROOT / "build" / "fovtrace_torch"
 
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 # compiler output of each library built by this process (ptxas register
 # and shared-memory reports for the CUDA kernels)
 build_logs: Dict[str, str] = {}
@@ -52,7 +54,9 @@ def build_library(name: str, sources: Sequence[Path],
     h.update(" ".join(command(["<src>"], "<out>")).encode())
     h.update(_host_tag().encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,8 +1,8 @@
 """The CUDA cluster kernels against their plain PyTorch versions, on the
 card: the resident kernels on earth, the streaming kernels on the city
 scene (M = 2), on earth forced to stream (bit for bit equal to the
-resident kernels) and on multi forced to M = 16. Seeded rays. Marked
-`cuda`; skipped without a GPU.
+resident kernels) and on multi forced to M = 16; then the probe kernels
+(csrc/probes.cu). Seeded rays. Marked `cuda`; skipped without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -11,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from fovtrace_torch import Camera
+from fovtrace_torch import Camera, kernels
 from fovtrace_torch.core.vec import Vec3
 from fovtrace_torch.kernels import cluster_isect as ci
 from fovtrace_torch.kernels import intersect as isect
 from fovtrace_torch.render import gbuffer
 from fovtrace_torch.scene import procedural
+from fovtrace_torch.scripts import MICRO_VARIANTS
+from fovtrace_torch.scripts import microbench_inner as mb
+from fovtrace_torch.scripts import probe_smem_dma as dma
 
 pytestmark = pytest.mark.cuda
 
@@ -167,3 +170,44 @@ def test_stream_wrappers_refuse_mixed_devices(city, dev):
     with pytest.raises(ValueError, match="visited"):
         ci.closest_hit(raysT, city.isect_coef, sched, counts, params,
                        visited=counts.cpu())
+
+
+@pytest.fixture(scope="module")
+def micro(earth):
+    return mb.build_inputs(earth, 128, 128)     # 64 ray blocks
+
+
+@pytest.mark.parametrize("variant", MICRO_VARIANTS)
+def test_micro_kernel_matches_plain(micro, variant):
+    args = micro.args(variant)
+    kernels.CALLS.clear()
+    got = mb.run_variant(variant, *args)
+    torch.cuda.synchronize()
+    assert kernels.CALLS[f"micro_{variant}"] == 1
+    want = mb.plain(variant, *args)
+    if variant in ("loop", "slab"):
+        assert torch.equal(got, want)
+    elif variant == "full":
+        # the closest-hit gate: t within rtol 1e-3 / atol 1e-4, at most
+        # 0.5% hit/miss flips
+        hk, hp = got < 1e30, want < 1e30
+        assert int((hk != hp).sum()) <= 0.005 * got.numel()
+        both = hk & hp
+        torch.testing.assert_close(got[both], want[both], rtol=1e-3,
+                                   atol=1e-4)
+    else:
+        # float32 sums of 10 (kernel) and 16 (plain) terms in another order
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_smem_dma_kernel_matches_plain(dev):
+    for shape in (dict(), dict(nb=64, nsc=666, sw=768, seed=3)):
+        arrays = dma.make_inputs(**shape)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        kernels.CALLS.clear()
+        got = dma.smem_dma(*args)
+        torch.cuda.synchronize()
+        assert kernels.CALLS["smem_dma"] == 1
+        assert torch.equal(got, dma.plain(*args))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      dma.numpy_reference(*arrays))
