@@ -5,17 +5,24 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero):
   card           require CUDA; print the card's name and power limit
-  build          compile the CUDA kernels from fovtrace_torch/csrc
+  build          compile the CUDA kernels from fovtrace_torch/csrc; each
+                 kernel's registers and spills from the log kept beside
+                 its library, whichever process built it (none allowed
+                 in the streaming kernels)
   kernels earth  the resident kernels against their plain PyTorch
                  versions (earth: 4,096 seeded random rays, the primary
                  rays and the G-buffer shadow rays of a 256x256 frame)
   kernels forced-stream
-                 earth forced onto the streaming route (M = 1) equal bit
-                 for bit to the resident kernels; multi forced to M = 16
+                 earth forced onto the streaming route (M = 1): closest
+                 hit bit for bit the resident kernel's, occlusion bit for
+                 bit or within 1e-6 (the order of a transparent member's
+                 Fresnel product); multi forced to M = 16
                  (MAX_SCHED = 4, repacked) against the plain versions
   city build     host build of the 170k-triangle city scene and its route
   kernels city   the streaming kernels against their plain versions on
-                 city (the same three ray sets)
+                 city (the same three ray sets); every ray block split
+                 over 8 CTAs gives the same ids and t, and occlusion
+                 within 1e-6
   main earth     the CLI's render path on earth at 1920x1088 with the
                  bench configuration, 3 frames of the circle gaze; counts
                  kernel launches and plain/brute calls during that run
@@ -25,8 +32,15 @@ non-zero):
   timing         each kernel, its plain version and its bound at the
                  main path's shapes: the 1920x1088 G-buffer and the
                  bounce-0 front of the earth (resident) and city
-                 (streaming) frames; then each kernel's launches x
-                 (kernel - bound), the order of the redesign
+                 (streaming) frames; the resident pair's inputs also
+                 through the streaming kernels; the streaming kernels
+                 without the heavy-block split, with and without the
+                 split CTAs in the grid (what the CTAs that return at
+                 once cost), with the pairs their warps computed and the
+                 bound of those pairs, and histograms of the member
+                 clusters tested per block and computed per ray; then
+                 each kernel's launches x (kernel - bound), the order of
+                 the redesign
   probe micro    the six microbenchmark kernels (csrc/probes.cu) against
                  their plain versions at the script's 2,097,152 earth
                  primary rays (loop and slab bit for bit); each one's
@@ -94,6 +108,20 @@ OPS_MM_PAIR = 84
 OPS_FULL_PAIR = 92
 
 
+def spills(log: str) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} from ptxas -v."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[1].strip()
+        elif fn and "spill stores" in line:
+            nums = [int(x) for x in line.replace(",", " ").split()
+                    if x.isdigit()]
+            out[fn] = (nums[1], nums[2])
+            fn = None
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -150,7 +178,9 @@ def compare(name, scene, ro, rd, tmin, tmax, dev, errs):
     raysT, n = ci.pack_raysT(ro, rd, tmin, tmax)
     sched, counts, params = ci.cluster_schedule(raysT, scene.cluster_aabb)
     coef, aux = scene.isect_coef, scene.isect_aux
-    tk, ik = ci.closest_hit(raysT, coef, sched, counts, params)
+    kw_c = dict(rec=scene.isect_rec)
+    kw_o = dict(rec=scene.isect_rec, tflags=scene.isect_tflags)
+    tk, ik = ci.closest_hit(raysT, coef, sched, counts, params, **kw_c)
     tp, ip = ci.closest_hit_plain(raysT, coef, sched, counts, params)
     ok_k = (ik.reshape(-1)[:n] >= 0)
     ok_p = (ip.reshape(-1)[:n] >= 0)
@@ -173,7 +203,8 @@ def compare(name, scene, ro, rd, tmin, tmax, dev, errs):
     assert frac >= 0.995, f"{name}: only {frac:.5f} identical ids"
     assert t_ok, f"{name}: refined t off by {t_err}"
 
-    ak = torch.stack(ci.occlusion(raysT, coef, aux, sched, counts, params))
+    ak = torch.stack(ci.occlusion(raysT, coef, aux, sched, counts, params,
+                                  **kw_o))
     ap = torch.stack(ci.occlusion_plain(raysT, coef, aux, sched, counts,
                                         params))
     a_err = float((ak - ap).abs().max())
@@ -181,6 +212,19 @@ def compare(name, scene, ro, rd, tmin, tmax, dev, errs):
           f"{float((ap.amax(0) == 0).float().mean()):.4f}")
     assert torch.allclose(ak, ap, rtol=1e-4, atol=1e-4), \
         f"{name}: occlusion off by {a_err}"
+    if kc.endswith("_stream"):
+        with ci.forced_split("all"):
+            t2, i2 = ci.closest_hit(raysT, coef, sched, counts, params,
+                                    **kw_c)
+            a2 = torch.stack(ci.occlusion(raysT, coef, aux, sched, counts,
+                                          params, **kw_o))
+        d = float((a2 - ak).abs().max())
+        same = torch.equal(t2, tk) and torch.equal(i2, ik)
+        print(f"[kernels] {name}: every block split over 8 CTAs vs as "
+              f"routed: closest hit bit for bit {same}, occlusion max |diff| "
+              f"{d:.3e}")
+        assert same, f"{name}: split closest hit differs"
+        assert d <= 1e-6, f"{name}: split occlusion off by {d}"
     errs[kc] = max(errs.get(kc, 0.0), t_err)
     errs[ko] = max(errs.get(ko, 0.0), a_err)
 
@@ -333,8 +377,9 @@ def main_path(label, scene_name, scene, cam, card):
 
 
 def capture_inputs(scene, cam, cfg):
-    """The (closest_hit, occlusion) argument tuples of one bench frame,
-    in call order: [0] the G-buffer pass, [1] bounce 0."""
+    """The (closest_hit, occlusion) arguments of one bench frame, as
+    (positional, keyword) pairs in call order: [0] the G-buffer pass,
+    [1] bounce 0."""
     from fovtrace_torch.kernels import cluster_isect as ci
     from fovtrace_torch.render import pipeline
 
@@ -342,9 +387,9 @@ def capture_inputs(scene, cam, cfg):
     real = {"closest_hit": ci.closest_hit, "occlusion": ci.occlusion}
 
     def recorder(name):
-        def call(*a):
-            captured[name].append(a)
-            return real[name](*a)
+        def call(*a, **kw):
+            captured[name].append((a, kw))
+            return real[name](*a, **kw)
         return call
 
     ci.closest_hit, ci.occlusion = recorder("closest_hit"), \
@@ -440,10 +485,27 @@ def time_schedule(scene, raysT, card):
           f"[{card}]")
 
 
+def histogram(values, edges=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256)):
+    """Counts of `values` per bin [lo, hi) of `edges`, the last open."""
+    v = values.float().cpu()
+    bins = []
+    for lo, hi in zip(edges, edges[1:] + (float("inf"),)):
+        n = int(((v >= lo) & (v < hi)).sum())
+        if n:
+            bins.append(f"[{lo},{hi}) {n}")
+    return (f"min {float(v.min()):.2f} mean {float(v.mean()):.2f} max "
+            f"{float(v.max()):.2f}; " + ", ".join(bins))
+
+
 def time_kernels(scene, captured, card, errs, times, kernel_iters,
                  plain_iters):
     """Kernel (CUDA events), plain version and bound at the captured
-    G-buffer and bounce-0 shapes; checks kernel against plain there."""
+    G-buffer and bounce-0 shapes; checks kernel against plain there. The
+    streaming kernels also without the heavy-block split, with and
+    without the split CTAs in the grid, with the pairs their warps
+    computed, the bound of those pairs, and the histograms of member
+    clusters tested per block and computed per ray; the resident kernels'
+    inputs also through the streaming ones."""
     from fovtrace_torch.kernels import cluster_isect as ci
 
     real = {"closest_hit": ci.closest_hit, "occlusion": ci.occlusion}
@@ -451,10 +513,11 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
              "occlusion": ci.occlusion_plain}
     for kind in ("closest_hit", "occlusion"):
         name = kernel_name(kind, scene)
+        stream = name.endswith("_stream")
         for label, call in (("gbuffer", 0), ("bounce0", 1)):
-            a = captured[kind][call]
-            nb = a[0].shape[0]
-            k_ms = cuda_ms(lambda: real[kind](*a), iters=kernel_iters)
+            a, kw = captured[kind][call]
+            nb, c = a[0].shape[0], a[1].shape[2] // 4
+            k_ms = cuda_ms(lambda: real[kind](*a, **kw), iters=kernel_iters)
             po = None
 
             def run_plain():
@@ -462,7 +525,9 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                 po = plain[kind](*a)
             p_ms = cuda_ms(run_plain, iters=plain_iters, warmup=0)
             visited = torch.zeros(nb, dtype=torch.int32, device=a[0].device)
-            ko = real[kind](*a, visited=visited)
+            rv = torch.zeros_like(visited) if stream else None
+            ko = real[kind](*a, **kw, visited=visited,
+                            **({"ray_visited": rv} if stream else {}))
             torch.cuda.synchronize()
             if kind == "closest_hit":
                 flips = int(((ko[1] >= 0) != (po[1] >= 0)).sum())
@@ -483,6 +548,49 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                   f"pairs, {nbytes} B): kernel {k_ms:.3f} ms, plain "
                   f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}), {agree}  "
                   f"[{card}]", flush=True)
+            if stream:
+                # the warps' own exits: the pairs they computed
+                wpairs = int(rv.sum()) * c
+                w_ms = max(wpairs * OPS_PER_PAIR / PEAK_F32,
+                           nbytes / PEAK_BYTES) * 1e3
+                # no ray block split: with no CTA for a split, then with
+                # the 8 nb split CTAs launched and returning at once
+                split_ms = {}
+                for mode in ("none", "idle"):
+                    with ci.forced_split(mode):
+                        split_ms[mode] = cuda_ms(
+                            lambda: real[kind](*a, **kw), iters=kernel_iters)
+                heavy = int((a[3 if kind == "closest_hit" else 4]
+                             > ci.STREAM_HEAVY).sum())
+                print(f"[timing] {name} {label}: {heavy} heavy blocks (> "
+                      f"{ci.STREAM_HEAVY} live entries) split over 8 CTAs "
+                      f"in {k_ms:.3f} ms; no block split "
+                      f"{split_ms['none']:.3f} ms, and with the "
+                      f"{8 * nb} idle split CTAs launched "
+                      f"{split_ms['idle']:.3f} ms (they cost "
+                      f"{split_ms['idle'] - split_ms['none']:.3f} ms); "
+                      f"warps computed {wpairs} pairs "
+                      f"({wpairs / max(pairs, 1):.3f} of the block pairs), "
+                      f"computed-pairs bound {w_ms:.3f} ms beside the block "
+                      f"bound {b_ms:.3f} ms  [{card}]")
+                print(f"[timing] {name} {label} member clusters tested per "
+                      f"block: {histogram(visited)}")
+                print(f"[timing] {name} {label} member clusters computed "
+                      f"per ray (block mean): {histogram(rv / 256.0)}",
+                      flush=True)
+            else:
+                # does the streaming design carry over? the same inputs
+                # through the streaming kernel (M = 1, bit for bit equal)
+                saved = ci._COEF_RESIDENT_BYTES
+                ci._COEF_RESIDENT_BYTES = 0
+                try:
+                    s_ms = cuda_ms(lambda: real[kind](*a, **kw),
+                                   iters=kernel_iters)
+                finally:
+                    ci._COEF_RESIDENT_BYTES = saved
+                print(f"[timing] {name} {label} through the streaming "
+                      f"kernel (forced route): {s_ms:.3f} ms against the "
+                      f"resident {k_ms:.3f} ms  [{card}]", flush=True)
             times[(name, label)] = (k_ms, p_ms, b_ms, by, int(visited.sum()))
 
 
@@ -670,18 +778,25 @@ def forced_stream(earth, earth_sets, multi_cpu, dev, errs):
         sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
         a = (raysT, earth.isect_coef, sched, counts, params)
         o = (raysT, earth.isect_coef, earth.isect_aux, sched, counts, params)
-        res = (*ci.closest_hit(*a), *ci.occlusion(*o))
+        kw = dict(rec=earth.isect_rec)
+        res = (*ci.closest_hit(*a, **kw),
+               *ci.occlusion(*o, tflags=earth.isect_tflags, **kw))
         ci._COEF_RESIDENT_BYTES = 0
         try:
             assert ci.route(earth.cluster_aabb.shape[0], 128) == "stream"
-            st = (*ci.closest_hit(*a), *ci.occlusion(*o))
+            st = (*ci.closest_hit(*a, **kw),
+                  *ci.occlusion(*o, tflags=earth.isect_tflags, **kw))
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(res, st)]
+            d = max(float((x - y).abs().max())
+                    for x, y in zip(res[2:], st[2:]))
+            print(f"[kernels] forced-stream earth {name}: stream == "
+                  f"resident bit for bit (t, idx, ar, ag, ab): {same}; "
+                  f"occlusion max |diff| {d:.3e}")
+            assert all(same[:2]), f"forced-stream earth {name}: {same}"
+            assert d <= 1e-6, f"forced-stream earth {name}: {d}"
         finally:
             ci._COEF_RESIDENT_BYTES = saved[0]
-        torch.cuda.synchronize()
-        same = [torch.equal(x, y) for x, y in zip(res, st)]
-        print(f"[kernels] forced-stream earth {name}: stream == resident bit "
-              f"for bit (t, idx, ar, ag, ab): {same}")
-        assert all(same), f"forced-stream earth {name}: {same}"
     ci.MAX_SCHED, ci._COEF_RESIDENT_BYTES = 4, 0
     try:
         multi = multi_cpu.with_pack().to(dev)   # repack under the grouping
@@ -710,7 +825,9 @@ def frame_parity(label, scene, cam):
     ok, _ = pipeline.render_frame(scene, cam, (RES // 2, RES // 2), st, small)
     used = {k: v for k, v in ci.counters().items() if v}
     real = ci.closest_hit, ci.occlusion
-    ci.closest_hit, ci.occlusion = ci.closest_hit_plain, ci.occlusion_plain
+    # the plain versions take no pack-time inputs
+    ci.closest_hit = lambda *a, **kw: ci.closest_hit_plain(*a)
+    ci.occlusion = lambda *a, **kw: ci.occlusion_plain(*a)
     try:
         op, _ = pipeline.render_frame(scene, cam, (RES // 2, RES // 2), st,
                                       small)
@@ -752,14 +869,20 @@ def main() -> int:
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(ci.load_cuda_library),
-                  pool.submit(load_probe_library)]:
-            f.result()
+        libs = [f.result()._name for f in [pool.submit(ci.load_cuda_library),
+                                           pool.submit(load_probe_library)]]
     print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.2f} s")
-    for lib in ("fovtrace_cluster_isect", "fovtrace_probes"):
-        for line in _build.build_logs.get(lib, "").splitlines():
+    logs = [_build.build_log(lib) for lib in libs]
+    for lib, log in zip(libs, logs):
+        for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"[build] {lib}: {line.strip()}")
+                print(f"[build] {os.path.basename(lib)}: {line.strip()}")
+    stream = {k: v for k, v in spills(logs[0]).items()
+              if "stream_kernel" in k}
+    assert len(stream) == 2, f"no ptxas report of the streaming kernels: " \
+        f"{sorted(stream)}"
+    spilled = {k: v for k, v in stream.items() if any(v)}
+    assert not spilled, f"streaming kernels spill registers: {spilled}"
 
     cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
                         device=dev)
@@ -830,7 +953,7 @@ def main() -> int:
     captured = capture_inputs(city, cam, cfg_c)
     time_kernels(city, captured, card, errs, times, kernel_iters=20,
                  plain_iters=1)
-    time_schedule(city, captured["closest_hit"][0][0], card)
+    time_schedule(city, captured["closest_hit"][0][0][0], card)
     # the redesign order: what each kernel loses to its bound per 3-frame
     # run, launches x the mean of (kernel - bound) over its two shapes
     loss = {name: launches[name] * sum(times[(name, s)][0] - times[(name, s)][2]
@@ -848,7 +971,7 @@ def main() -> int:
     micro = {}
     probe_micro(earth, card, times, micro)
     ph.start("probe dma")
-    dma_res = probe_dma(captured["closest_hit"][0], card)
+    dma_res = probe_dma(captured["closest_hit"][0][0], card)
     probe_counts = probe_calls()
     print(f"[probe dma] launches in the probe phases: "
           f"{json.dumps(probe_counts)}")

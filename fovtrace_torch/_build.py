@@ -5,8 +5,11 @@ Each library is compiled from sources in the checkout into
 of its sources and compiler command, so an edited source (or flag) gets
 a fresh build and an unchanged one is reused. The compile writes to a
 temporary name and renames it into place, so concurrent processes never
-load a half-written library. Each library has its own lock, so threads
-building different libraries run their compilers at the same time.
+load a half-written library. The compiler's output (for the CUDA
+kernels, ptxas's registers, spills and shared memory per kernel) is kept
+beside the library as lib<name>-<hash>.log (`build_log`), so any later
+run can read it. Each library has its own lock, so threads building
+different libraries run their compilers at the same time.
 """
 
 from __future__ import annotations
@@ -24,9 +27,6 @@ BUILD_DIR = REPO_ROOT / "build" / "fovtrace_torch"
 
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
-# compiler output of each library built by this process (ptxas register
-# and shared-memory reports for the CUDA kernels)
-build_logs: Dict[str, str] = {}
 
 
 def _host_tag() -> str:
@@ -43,21 +43,24 @@ def _host_tag() -> str:
 
 
 def build_library(name: str, sources: Sequence[Path],
-                  command: Callable[[List[str], str], List[str]]) -> Path:
+                  command: Callable[[List[str], str], List[str]],
+                  headers: Sequence[Path] = ()) -> Path:
     """Path of lib`name`-<hash>.so, compiling it first if needed.
 
-    `command(sources, out_path)` returns the compiler argv."""
+    `command(sources, out_path)` returns the compiler argv; `headers`
+    are the files the sources include, hashed with them."""
     srcs = [str(Path(s)) for s in sources]
     h = hashlib.sha256()
-    for s in srcs:
+    for s in [*srcs, *headers]:
         h.update(Path(s).read_bytes())
     h.update(" ".join(command(["<src>"], "<out>")).encode())
     h.update(_host_tag().encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
-        if out.exists():
+        if out.exists() and log.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -67,6 +70,15 @@ def build_library(name: str, sources: Sequence[Path],
             raise RuntimeError(
                 f"building {name} failed (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}")
-        build_logs[name] = proc.stdout + proc.stderr
+        # the log first: a library in place always has its log
+        tmp_log = log.with_suffix(f".{os.getpid()}.tmplog")
+        tmp_log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_log, log)
         os.replace(tmp, out)
         return out
+
+
+def build_log(library: Path) -> str:
+    """The compiler output kept beside a library that `build_library`
+    built."""
+    return Path(library).with_suffix(".log").read_text()

@@ -62,12 +62,20 @@ def _build(cls, d: Dict[str, Any], device, nested=None):
 
 def scene_from_numpy(d: Dict[str, Any], device) -> Scene:
     """A Scene (BVH arrays, intersection pack and attribute rows
-    included) from flat numpy arrays."""
+    included) from flat numpy arrays. The port's own fields derived from
+    the pack (`isect_rec`, `isect_tflags`) are derived here when the
+    arrays lack them, as the reference's scenes do."""
+    from fovtrace_torch.kernels import cluster_isect
+
     materials = _build(Materials, _sub(d, "materials."), device)
     light = _build(ParallelogramLight, _sub(d, "light."), device)
     scene = _build(Scene, d, device,
                    nested={"materials": materials, "light": light})
-    return scene.replace(bvh_max_stack=int(d.get("bvh_max_stack") or 0))
+    scene = scene.replace(bvh_max_stack=int(d.get("bvh_max_stack") or 0))
+    if scene.isect_coef is not None and scene.isect_rec is None:
+        scene = scene.replace(**cluster_isect.stream_inputs(
+            scene.isect_coef, scene.isect_aux))
+    return scene
 
 
 def camera_from_numpy(d: Dict[str, Any], device) -> Camera:

@@ -76,6 +76,8 @@
 
 #include <type_traits>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int RAY_BLOCK = 256;
@@ -255,58 +257,6 @@ micro_kernel(const float* __restrict__ rays, const int* __restrict__ sched,
     }
   }
   out[(size_t)i * RAY_BLOCK + threadIdx.x] = val;
-}
-
-// ---------------------------------------------------------- TMA plumbing
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// arrive on the barrier and expect `bytes` of copies to complete on it
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the barrier's phase with this parity has completed
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// 1-D bulk copy global -> shared that completes on barrier `bar`
-__device__ __forceinline__ void bulk_g2s(unsigned dst, const void* src,
-                                         unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// order this thread's earlier shared-memory accesses before later
-// accesses by the async (TMA) proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __global__ void __launch_bounds__(RAY_BLOCK)

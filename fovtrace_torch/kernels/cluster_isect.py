@@ -23,9 +23,10 @@ or once every ray is fully occluded (occlusion).
 
 Two routes, as in the reference: packs up to `_COEF_RESIDENT_BYTES`
 take the resident kernels (flat schedule, M == 1), larger packs the
-streaming kernels, which double-buffer each entry's live member slabs
-(`route`). Each kernel wrapper launches the CUDA kernel of its route
-(`csrc/cluster_isect.cu`) on a CUDA tensor and runs the plain PyTorch
+streaming kernels (`route`), which copy each live member's triangle
+records (`triangle_records`, built once per pack) into a ring of
+shared-memory stages. Each kernel wrapper launches the CUDA kernel of its
+route (`csrc/cluster_isect.cu`) on a CUDA tensor and runs the plain PyTorch
 version on a CPU tensor; any other device raises. The wrappers count
 their launches and the plain versions their calls, so a run can show
 which one it used.
@@ -33,6 +34,7 @@ which one it used.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import shutil
 from pathlib import Path
@@ -60,7 +62,17 @@ _COEF_RESIDENT_BYTES = 4 * 1024 * 1024
 _PLAIN_CHUNK_BYTES = 64 << 20
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "cluster_isect.cu"
+TMA_HEADER = _CSRC.parent / "tma.cuh"
 _cuda_lib = None
+
+# the streaming kernels split a ray block with more live schedule
+# entries than this over eight CTAs of 32 rays (HEAVY in the CUDA source)
+STREAM_HEAVY = 64
+# a split forced for tests and measurement (`forced_split`): the kernels'
+# (heavy_at, launch the split CTAs) by mode
+_SPLIT_MODES = {"all": (-1, True), "none": (1 << 30, False),
+                "idle": (1 << 30, True)}
+_split = None
 
 
 def pick_cluster(t_pad_min: int) -> int:
@@ -153,6 +165,26 @@ def compute_pack(scene):
     clusters[:, 0:3] = lo.amin(dim=1)
     clusters[:, 3:6] = hi.amax(dim=1)
     return coef, aux, clusters
+
+
+def triangle_records(coef: torch.Tensor) -> torch.Tensor:
+    """[NC, c, 40] f32: the streaming kernels' per-triangle records,
+    rec[jc, j, q*10 + k] = coef[jc, k, q*c + j] for the coefficient rows
+    k = 0..9 and the columns q (t_num, det, u_num, v_num), so each member
+    cluster is one contiguous c x 160-byte slab that a kernel copies into
+    shared memory as it is. The aux rows 0-4 that occlusion stages for a
+    transparent member are already one contiguous slab, `aux[jc, 0:5]`."""
+    nc, c = coef.shape[0], coef.shape[2] // 4
+    return (coef[:, :NFEAT, :].reshape(nc, NFEAT, 4, c).permute(0, 3, 2, 1)
+            .reshape(nc, c, 4 * NFEAT).contiguous())
+
+
+def stream_inputs(coef: torch.Tensor, aux: torch.Tensor) -> dict:
+    """The Scene fields derived from a pack for the kernels:
+    `isect_rec` (`triangle_records`) and `isect_tflags`
+    (`cluster_tflags`)."""
+    return dict(isect_rec=triangle_records(coef),
+                isect_tflags=cluster_tflags(aux))
 
 
 def pack_raysT(ro: Vec3, rd: Vec3, t_min, t_max):
@@ -390,31 +422,37 @@ def load_cuda_library() -> ctypes.CDLL:
     global _cuda_lib
     if _cuda_lib is None:
         path = _build.build_library("fovtrace_cluster_isect", [_CSRC],
-                                    _nvcc_command)
+                                    _nvcc_command, [TMA_HEADER])
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        # data pointers, visited (may be NULL), nb, c, sw, m, stream
+        # data pointers, then visited (may be NULL), nb, c, sw, m, stream;
+        # the streaming kernels ray_visited (may be NULL) after visited,
+        # and their forced-split entry points heavy_at and nsplit after m
         for name, nptr in (("closest_hit", 7), ("occlusion", 10)):
-            for fn in (getattr(lib, f"fov_{name}"),
-                       getattr(lib, f"fov_{name}_stream")):
-                fn.argtypes = [p] * (nptr + 1) + [i, i, i, i, p]
+            for suffix, argtypes in (
+                    ("", [p] * (nptr + 1) + [i, i, i, i, p]),
+                    ("_stream", [p] * (nptr + 2) + [i] * 4 + [p]),
+                    ("_stream_split", [p] * (nptr + 2) + [i] * 6 + [p])):
+                fn = getattr(lib, f"fov_{name}{suffix}")
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
         _cuda_lib = lib
     return _cuda_lib
 
 
-def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None):
+def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None,
+           rec=None, tflags=None, ray_visited=None):
     """Validate what the kernels (and their plain versions) take."""
     dev = raysT.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"cluster intersection runs on cpu or cuda, not {dev}")
     want = [(raysT, torch.float32, "raysT"), (coef, torch.float32, "coef"),
             (schedmask, torch.int32, "schedmask"),
-            (counts, torch.int32, "counts"), (params, torch.float32, "params")]
-    if aux is not None:
-        want.append((aux, torch.float32, "aux"))
-    if visited is not None:
-        want.append((visited, torch.int32, "visited"))
+            (counts, torch.int32, "counts"), (params, torch.float32, "params"),
+            (aux, torch.float32, "aux"), (visited, torch.int32, "visited"),
+            (rec, torch.float32, "rec"), (tflags, torch.int32, "tflags"),
+            (ray_visited, torch.int32, "ray_visited")]
+    want = [w for w in want if w[0] is not None]
     for t, dt, name in want:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, rays on {dev}")
@@ -431,6 +469,11 @@ def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None):
     c = coef.shape[2] // 4
     if aux is not None and tuple(aux.shape) != (nc, 8, c):
         raise ValueError(f"aux must be [{nc}, 8, {c}], got {tuple(aux.shape)}")
+    if rec is not None and tuple(rec.shape) != (nc, c, 4 * NFEAT):
+        raise ValueError(f"rec must be [{nc}, {c}, {4 * NFEAT}], got "
+                         f"{tuple(rec.shape)}")
+    if tflags is not None and tuple(tflags.shape) != (nc,):
+        raise ValueError(f"tflags must be [{nc}], got {tuple(tflags.shape)}")
     nsc = nc // pick_members(nc)
     if schedmask.dim() != 2 or schedmask.shape[0] != nb or \
             schedmask.shape[1] % 2 or schedmask.shape[1] // 2 <= nsc:
@@ -438,12 +481,17 @@ def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None):
                          f"{tuple(schedmask.shape)}")
     if tuple(counts.shape) != (nb,) or tuple(params.shape) != (2,):
         raise ValueError("counts must be [NB] and params [2]")
-    if visited is not None:
+    for name, v in (("visited", visited), ("ray_visited", ray_visited)):
+        if v is None:
+            continue
         if dev.type == "cpu":
-            raise ValueError("visited counts a CUDA kernel's work; the plain "
+            raise ValueError(f"{name} counts a CUDA kernel's work; the plain "
                              "version walks every entry")
-        if tuple(visited.shape) != (nb,):
-            raise ValueError(f"visited must be [{nb}]")
+        if tuple(v.shape) != (nb,):
+            raise ValueError(f"{name} must be [{nb}]")
+    if ray_visited is not None and route(nc, c) != "stream":
+        raise ValueError("ray_visited counts the streaming kernels' work; "
+                         "this pack takes the resident route")
     return nb, nc, c
 
 
@@ -465,68 +513,119 @@ def route(nc: int, c: int) -> str:
     return "resident"
 
 
-def _launch(kind, raysT, coef, schedmask, visited, *ptrs):
-    """Launch kernel `kind` ("closest_hit" or "occlusion") of the pack's
-    route on the current stream; raise on a CUDA error, count the launch.
-    `ptrs` are the kernel-specific data pointers."""
-    nb, nc, c = raysT.shape[0], coef.shape[0], coef.shape[2] // 4
-    r = route(nc, c)
-    fn = getattr(load_cuda_library(),
-                 f"fov_{kind}_stream" if r == "stream" else f"fov_{kind}")
-    err = fn(*ptrs, None if visited is None else visited.data_ptr(), nb, c,
-             schedmask.shape[1] // 2, pick_members(nc),
-             torch.cuda.current_stream(raysT.device).cuda_stream)
+@contextlib.contextmanager
+def forced_split(mode: str):
+    """For tests and measurement: inside the block the streaming
+    kernels split every ray block over eight CTAs ("all"), none ("none",
+    launching no CTA for a split), or none while launching the split CTAs
+    of every block, which all return at once ("idle"); the render path
+    splits the blocks with more than STREAM_HEAVY live entries."""
+    global _split
+    saved, _split = _split, _SPLIT_MODES[mode]
+    try:
+        yield
+    finally:
+        _split = saved
+
+
+def _launch(kind, r, raysT, ptrs, visited, ray_visited, shape):
+    """Launch kernel `kind` ("closest_hit" or "occlusion") of route `r`
+    on the current stream; raise on a CUDA error, count the launch.
+    `ptrs` are its data tensors in the C function's order, `shape` its
+    (nb, c, sw, m). The streaming kernels' counts are zeroed first: a
+    split ray block's CTAs add theirs up."""
+    name = f"{kind}_stream" if r == "stream" else kind
+    entry = name
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = [ptr(t) for t in ptrs] + [ptr(visited)]
+    if r == "stream":
+        for v in (visited, ray_visited):
+            if v is not None:
+                v.zero_()
+        args += [ptr(ray_visited), *shape]
+        if _split is not None:
+            heavy_at, split_ctas = _split
+            entry = f"{name}_split"
+            args += [heavy_at, shape[0] if split_ctas else 0]
+    else:
+        args += list(shape)
+    err = getattr(load_cuda_library(), f"fov_{entry}")(
+        *args, torch.cuda.current_stream(raysT.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kind} ({r}) kernel launch failed: CUDA error "
                            f"{err}")
-    kernels.CALLS[f"{kind}_stream" if r == "stream" else kind] += 1
+    kernels.CALLS[name] += 1
 
 
-def closest_hit(raysT, coef, schedmask, counts, params, visited=None):
+def closest_hit(raysT, coef, schedmask, counts, params, visited=None, *,
+                rec=None, ray_visited=None):
     """Closest hit per ray: (t [NB, 256] f32, idx [NB, 256] i32, -1 on a
     miss). t is the selection distance; callers refine the winner.
 
-    Replaces `_closest_kernel` and `_closest_kernel_stream`
-    (fovtrace/kernels/pallas_isect.py), by the pack's `route`. On
-    the H100 both are bound by the per-thread FMA and shared-memory load
-    issue of the 4 x 10-term dot products per (ray, triangle) pair, not
-    by memory: a block stages each cluster's 20 KB slab in shared memory
-    and 256 rays reuse it. See the source note in csrc/cluster_isect.cu.
-    `visited`, an optional [NB] int32 CUDA tensor, receives the member
-    clusters each block tested."""
-    nb, _, _ = _check(raysT, coef, schedmask, counts, params,
-                      visited=visited)
+    Replaces `_closest_kernel` (resident route) and
+    `_closest_kernel_stream` (streaming route) of
+    fovtrace/kernels/pallas_isect.py, by the pack's `route`. Both are
+    bound by per-pair arithmetic issue, not by memory (source note in
+    csrc/cluster_isect.cu). The resident kernel stages each cluster's
+    coefficient slab in shared memory for one thread per ray. The
+    streaming kernel copies each live member's triangle records `rec`
+    (`triangle_records(coef)`, derived here when not given) into a ring
+    of shared-memory stages by TMA, gives each thread 4 rays and a share
+    of the member's triangles, merges the rays' (t, id) exactly at the
+    end of each entry, lets each warp stop on its own bound, and splits
+    a ray block with more than
+    STREAM_HEAVY live entries over eight CTAs; its ids and t equal the
+    resident kernel's. `visited`, an optional [NB] int32 CUDA tensor,
+    receives the member clusters each block tested; `ray_visited`
+    (streaming route only) rays x member clusters its warps computed."""
+    nb, nc, c = _check(raysT, coef, schedmask, counts, params,
+                       visited=visited, rec=rec, ray_visited=ray_visited)
     if raysT.device.type == "cpu":
         return closest_hit_plain(raysT, coef, schedmask, counts, params)
     t = torch.empty((nb, RAY_BLOCK), dtype=torch.float32, device=raysT.device)
     idx = torch.empty((nb, RAY_BLOCK), dtype=torch.int32, device=raysT.device)
+    r = route(nc, c)
+    if r == "stream" and rec is None:
+        rec = triangle_records(coef)
     if nb:
-        _launch("closest_hit", raysT, coef, schedmask, visited,
-                raysT.data_ptr(), coef.data_ptr(), schedmask.data_ptr(),
-                counts.data_ptr(), params.data_ptr(), t.data_ptr(),
-                idx.data_ptr())
+        _launch("closest_hit", r, raysT,
+                (raysT, rec if r == "stream" else coef, schedmask, counts,
+                 params, t, idx), visited, ray_visited,
+                (nb, c, schedmask.shape[1] // 2, pick_members(nc)))
     return t, idx
 
 
-def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None):
+def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None, *,
+              rec=None, tflags=None, ray_visited=None):
     """RGB shadow attenuation per ray: (ar, ag, ab), each [NB, 256] f32.
 
     Replaces `_occlusion_kernel` and `_occlusion_kernel_stream`
-    (fovtrace/kernels/pallas_isect.py). Bound like `closest_hit`; its
-    early exits (every ray fully occluded, or the schedule past the
-    block's t_max) end most blocks after a few clusters."""
-    nb, _, _ = _check(raysT, coef, schedmask, counts, params, aux, visited)
+    (fovtrace/kernels/pallas_isect.py). Bound and built like
+    `closest_hit`; `tflags` is `cluster_tflags(aux)` (derived here when
+    not given). Its early exits (every ray fully occluded, or the
+    schedule past t_max) end most blocks, or in the streaming kernel
+    most warps, after a few clusters. The streaming kernel multiplies a
+    transparent member's Fresnel factors per lane and then across the
+    lanes of a ray, in lane order: the product may round differently
+    from the resident kernel's sequential one (by at most a few ulp;
+    equal when a ray meets at most one factor after the first)."""
+    nb, nc, c = _check(raysT, coef, schedmask, counts, params, aux, visited,
+                       rec=rec, tflags=tflags, ray_visited=ray_visited)
     if raysT.device.type == "cpu":
         return occlusion_plain(raysT, coef, aux, schedmask, counts, params)
-    tflags = cluster_tflags(aux)
     out = torch.empty((3, nb, RAY_BLOCK), dtype=torch.float32,
                       device=raysT.device)
+    r = route(nc, c)
+    if tflags is None:
+        tflags = cluster_tflags(aux)
+    if r == "stream" and rec is None:
+        rec = triangle_records(coef)
     if nb:
-        _launch("occlusion", raysT, coef, schedmask, visited,
-                raysT.data_ptr(), coef.data_ptr(), aux.data_ptr(),
-                tflags.data_ptr(), schedmask.data_ptr(), counts.data_ptr(),
-                params.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr())
+        _launch("occlusion", r, raysT,
+                (raysT, rec if r == "stream" else coef, aux, tflags,
+                 schedmask, counts, params, out[0], out[1], out[2]),
+                visited, ray_visited,
+                (nb, c, schedmask.shape[1] // 2, pick_members(nc)))
     return out[0], out[1], out[2]
 
 
@@ -552,7 +651,8 @@ def intersect_cluster(scene, ro: Vec3, rd: Vec3, t_min, t_max) -> Hit:
     u = v = 0: callers refine the winner (intersect.refine_hit_v)."""
     raysT, n = pack_raysT(ro, rd, t_min, t_max)
     sched, counts, params = cluster_schedule(raysT, scene.cluster_aabb)
-    t, idx = closest_hit(raysT, scene.isect_coef, sched, counts, params)
+    t, idx = closest_hit(raysT, scene.isect_coef, sched, counts, params,
+                         rec=scene.isect_rec)
     z = torch.zeros((n,), dtype=torch.float32, device=raysT.device)
     return Hit(t=t.reshape(-1)[:n], tri=idx.reshape(-1)[:n], u=z, v=z)
 
@@ -563,6 +663,7 @@ def occlusion_cluster(scene, ro: Vec3, rd: Vec3, t_min, t_max) -> Vec3:
     raysT, n = pack_raysT(ro, rd, t_min, t_max)
     sched, counts, params = cluster_schedule(raysT, scene.cluster_aabb)
     ar, ag, ab = occlusion(raysT, scene.isect_coef, scene.isect_aux, sched,
-                           counts, params)
+                           counts, params, rec=scene.isect_rec,
+                           tflags=scene.isect_tflags)
     cut = lambda a: a.reshape(-1)[:n]
     return Vec3(cut(ar), cut(ag), cut(ab))

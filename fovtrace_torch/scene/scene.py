@@ -180,6 +180,10 @@ class Scene:
     isect_coef: Optional[torch.Tensor] = None    # [NC, 16, 4c]
     isect_aux: Optional[torch.Tensor] = None     # [NC, 8, c]
     cluster_aabb: Optional[torch.Tensor] = None  # [NC, 8]
+    # the streaming kernels' per-triangle records and each cluster's
+    # transparency flag, derived from the pack once (port only)
+    isect_rec: Optional[torch.Tensor] = None     # [NC, c, 40]
+    isect_tflags: Optional[torch.Tensor] = None  # [NC] int32
 
     # per-triangle shading attributes [T, 24]: n0 n1 n2 (9), geometric
     # normal (3), uv0 uv1 uv2 (6), mat_id (1), zero pad (5)
@@ -234,7 +238,8 @@ class Scene:
              torch.zeros((self.num_triangles, 5), dtype=torch.float32,
                          device=self.device)], dim=1)
         return self.replace(isect_coef=coef, isect_aux=aux,
-                            cluster_aabb=clusters, tri_attr=attr)
+                            cluster_aabb=clusters, tri_attr=attr,
+                            **cluster_isect.stream_inputs(coef, aux))
 
     @classmethod
     def build(cls, vertices, triangles, mat_ids, materials: Materials,

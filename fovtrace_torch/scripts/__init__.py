@@ -31,7 +31,7 @@ def load_probe_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         path = _build.build_library("fovtrace_probes", [_CSRC],
-                                    ci._nvcc_command)
+                                    ci._nvcc_command, [ci.TMA_HEADER])
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
         for v in MICRO_VARIANTS:

@@ -62,7 +62,8 @@ def _tv(rows):
 def test_city_scene_equals_reference(city):
     sj, st = city
     ref, port = convert.to_numpy(sj), convert.to_numpy(st)
-    assert ref.keys() == port.keys()
+    # the port's Scene also holds the kernels' records and flags
+    assert port.keys() == ref.keys() | {"isect_rec", "isect_tflags"}
     for k in ref:
         if isinstance(ref[k], np.ndarray):
             assert ref[k].dtype == port[k].dtype, k
@@ -177,3 +178,22 @@ def test_city_frame_matches_reference(city):
     counts = ci.counters()
     assert counts["closest_hit_plain"] > 0 and counts["occlusion_plain"] > 0
     assert counts["intersect_brute"] == 0
+
+
+def test_city_stream_inputs_from_reference_pack(city):
+    """City's pack-time records (27.3 MB, M = 2) and transparency flags
+    against the reference's pack, member slab by member slab."""
+    sj, st = city
+    coef = np.asarray(sj.isect_coef)
+    nc, c = coef.shape[0], coef.shape[2] // 4
+    rec = st.isect_rec.numpy()
+    assert rec.shape == (nc, c, 40) and rec.flags["C_CONTIGUOUS"]
+    for q in range(4):
+        # rec[:, j, q*10 + k] = coef[:, k, q*c + j]
+        np.testing.assert_array_equal(
+            rec[:, :, q * 10:(q + 1) * 10],
+            coef[:, :10, q * c:(q + 1) * c].transpose(0, 2, 1))
+    aux = np.asarray(sj.isect_aux)
+    np.testing.assert_array_equal(
+        st.isect_tflags.numpy(),
+        (aux[:, 0, :].max(axis=1) > 0.0).astype(np.int32))

@@ -1,11 +1,15 @@
 """The CUDA cluster kernels against their plain PyTorch versions, on the
 card: the resident kernels on earth, the streaming kernels on the city
 scene (M = 2), on earth forced to stream (bit for bit equal to the
-resident kernels) and on multi forced to M = 16; then the probe kernels
-(csrc/probes.cu). Seeded rays. Marked `cuda`; skipped without a GPU.
+resident kernels), on multi forced to M = 16, on crafted exact ties and
+on blocks whose warps exit at different points, and with the ray blocks'
+split forced; then the probe kernels (csrc/probes.cu). Seeded rays. Marked `cuda`; skipped
+without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -160,6 +164,108 @@ def test_forced_supercluster_stream_matches_plain(dev, monkeypatch):
     _assert_matches_plain(multi, raysT, sched, counts, params, ch, oc)
 
 
+def _stream_earth(monkeypatch, members):
+    """Earth's pack on the streaming route, scheduled with `members`
+    clusters per entry (44 clusters: no repack needed for 1 or 2)."""
+    monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
+    monkeypatch.setattr(ci, "MAX_SCHED", 44 // members)
+    assert ci.pick_members(44) == members
+
+
+def test_stream_ties_give_plain_ids(earth, dev, monkeypatch):
+    """Exact ties everywhere: triangle 2i+1 of each cluster is triangle
+    2i (lanes of different triangle groups), and cluster 2e+1 is cluster
+    2e (the two members of entry e at M = 2). The kernel must keep the
+    plain version's ids: the earliest member, then the lowest lane."""
+    _stream_earth(monkeypatch, 2)
+    coef, aux, aabb = (earth.isect_coef.clone(), earth.isect_aux.clone(),
+                       earth.cluster_aabb.clone())
+    nc, c = coef.shape[0], coef.shape[2] // 4
+    lanes = coef.view(nc, 16, 4, c)
+    lanes[..., 1::2] = lanes[..., 0::2]
+    for a in (coef, aux, aabb):
+        a[1::2] = a[0::2]
+    rec = ci.triangle_records(coef)
+    hits = 0
+    for rays in ("random", "primary", "ragged"):
+        ro, rd, tmax = _ray_sets(earth, dev)[rays]
+        raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+        sched, counts, params = ci.cluster_schedule(raysT, aabb)
+        ci.reset_counters()
+        tk, ik = ci.closest_hit(raysT, coef, sched, counts, params, rec=rec)
+        torch.cuda.synchronize()
+        assert ci.counters()["closest_hit_stream"] == 1
+        tp, ip = ci.closest_hit_plain(raysT, coef, sched, counts, params)
+        hit = ip >= 0
+        hits += int(hit.sum())
+        assert torch.equal(ik, ip), rays
+        assert torch.equal(tk[hit], tp[hit]), rays
+        assert bool((ip[hit] % 2 == 0).all())
+        assert bool(((ip[hit] // c) % 2 == 0).all())
+    assert hits > 0
+
+
+@pytest.mark.parametrize("members", [1, 2])
+def test_stream_occlusion_warps_exit_alone(earth, dev, members, monkeypatch):
+    """Blocks whose warps differ, by warp w of each block: w % 4 == 0
+    rays fall on the opaque sphere (fully occluded), 1 the same with a
+    t_max short of it, 2 end inside the refractive box, having crossed
+    its top only (one Fresnel factor), 3 seeded random directions. Equal
+    to the plain version, and to the resident kernel within 1e-6; each
+    warp computes no more member clusters than its block tested, and
+    together they compute fewer than all 256 rays' worth."""
+    n = 8 * 256
+    r = np.random.default_rng(11)
+    warp = (np.arange(n) % 256) // 32
+    jit = r.uniform(-0.05, 0.05, size=(n, 3))
+    jit[:, 1] = 0.0
+    # down onto the sphere (radius 0.8 at (0, 1, 0)): its top 8.2 away
+    down = np.array([0.0, -1.0, 0.0])
+    ro = np.array([0.0, 10.0, 0.0]) + 4.0 * jit
+    rd = np.tile(down, (n, 1))
+    # slanted into the box (half-size 0.4 at (-2, 0.4, 1.2)): through its
+    # top ~8.55 along, at its centre 9 along
+    slant = np.array([0.5, -1.0, 0.0]) / np.sqrt(1.25)
+    box = np.array([-2.0, 0.4, 1.2]) + jit - 9.0 * slant
+    ro = np.where((warp % 4 == 2)[:, None], box, ro)
+    rd = np.where((warp % 4 == 2)[:, None], slant, rd)
+    rnd = r.normal(size=(n, 3))
+    rnd /= np.linalg.norm(rnd, axis=-1, keepdims=True)
+    rd = np.where((warp % 4 == 3)[:, None], rnd, rd)
+    tmax = np.select([warp % 4 == 1, warp % 4 == 2], [1.0, 9.0], 1e30)
+    v = lambda a: Vec3(*[torch.tensor(a[:, k], dtype=torch.float32,
+                                      device=dev) for k in range(3)])
+    raysT, _ = ci.pack_raysT(v(ro), v(rd), 1e-3,
+                             torch.tensor(tmax, dtype=torch.float32,
+                                          device=dev))
+    sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+    args = (raysT, earth.isect_coef, earth.isect_aux, sched, counts, params)
+    kw = dict(rec=earth.isect_rec, tflags=earth.isect_tflags)
+    resident = torch.stack(ci.occlusion(*args, **kw))
+    _stream_earth(monkeypatch, members)
+    sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+    args = args[:3] + (sched, counts, params)
+    visited = torch.zeros_like(counts)
+    rv = torch.zeros_like(counts)
+    got = torch.stack(ci.occlusion(*args, visited=visited, ray_visited=rv,
+                                   **kw))
+    torch.cuda.synchronize()
+    want = torch.stack(ci.occlusion_plain(*args))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert float((got - resident).abs().max()) <= 1e-6
+    sel = lambda q: torch.tensor(warp % 4 == q, device=dev)
+    flat = want.reshape(3, -1)
+    assert bool((flat[:, sel(0)] == 0).all())
+    assert bool((flat[:, sel(1)] == 1).all())
+    part = flat[:, sel(2)]
+    assert bool(((part > 0) & (part < 1)).all())
+    # rays x member clusters: every ray at most its block's tested
+    # members, the warp that tested them all at least 32 rays' worth
+    assert bool((rv <= 256 * visited).all())
+    assert bool((rv >= 32 * visited).all())
+    assert int(rv.sum()) < 256 * int(visited.sum())
+
+
 def test_stream_wrappers_refuse_mixed_devices(city, dev):
     ro, rd, tmax = _ray_sets(city, dev)["random"]
     raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
@@ -170,6 +276,35 @@ def test_stream_wrappers_refuse_mixed_devices(city, dev):
     with pytest.raises(ValueError, match="visited"):
         ci.closest_hit(raysT, city.isect_coef, sched, counts, params,
                        visited=counts.cpu())
+    with pytest.raises(ValueError, match="rec"):
+        ci.closest_hit(raysT, city.isect_coef, sched, counts, params,
+                       rec=city.isect_rec.cpu())
+
+
+@pytest.mark.parametrize("rays", ["random", "primary", "ragged"])
+def test_stream_split_blocks_agree_on_city(city, dev, rays):
+    """The ray blocks split as routed (more than STREAM_HEAVY live
+    entries), none split with or without the idle split CTAs in the
+    grid, and every block split over eight CTAs of 32 rays: the same ids
+    and t, occlusion within 1e-6, all equal to the plain version."""
+    ro, rd, tmax = _ray_sets(city, dev)[rays]
+    raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+    sched, counts, params = ci.cluster_schedule(raysT, city.cluster_aabb)
+    out = []
+    for mode in (None, "none", "idle", "all"):
+        with ci.forced_split(mode) if mode else contextlib.nullcontext():
+            out.append((ci.closest_hit(raysT, city.isect_coef, sched, counts,
+                                       params, rec=city.isect_rec),
+                        torch.stack(ci.occlusion(
+                            raysT, city.isect_coef, city.isect_aux, sched,
+                            counts, params, rec=city.isect_rec,
+                            tflags=city.isect_tflags))))
+    torch.cuda.synchronize()
+    c0, o0 = out[0]
+    for c1, o1 in out[1:]:
+        assert torch.equal(c0[0], c1[0]) and torch.equal(c0[1], c1[1])
+        assert float((o0 - o1).abs().max()) <= 1e-6
+        _assert_matches_plain(city, raysT, sched, counts, params, c1, o1)
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,8 @@ plain versions of the cluster kernels against the Pallas kernels run in
 interpret mode (as tests/test_pallas_isect.py runs them on the CPU), and
 the brute-force oracles against each other."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -251,3 +253,90 @@ def test_wrappers_validate_inputs(scenes):
     with pytest.raises(ValueError, match="visited"):
         ci.closest_hit(raysT, coef, sched, counts, params,
                        visited=torch.zeros_like(counts))
+
+
+def _records_from_reference(coef):
+    """The streaming kernels' records from a reference pack, element by
+    element: rec[jc, j, q*10 + k] = coef[jc, k, q*c + j]."""
+    nc, c = coef.shape[0], coef.shape[2] // 4
+    j, q, k = np.meshgrid(np.arange(c), np.arange(4), np.arange(10),
+                          indexing="ij")
+    rec = np.full((nc, c, 40), np.nan, np.float32)
+    rec[:, j, q * 10 + k] = coef[:, k, q * c + j]
+    return rec
+
+
+@pytest.mark.parametrize("name", ["earth", "box"])
+def test_stream_inputs_from_reference_pack(scenes, name):
+    """The port's pack-time records, aux slabs and transparency flags
+    against the reference's pack (pallas_isect.compute_pack)."""
+    sj, st = scenes[name]
+    coef_j, aux_j, _ = (np.asarray(a) for a in pallas_isect.compute_pack(sj))
+    nc, c = coef_j.shape[0], coef_j.shape[2] // 4
+    np.testing.assert_array_equal(st.isect_rec.numpy(),
+                                  _records_from_reference(coef_j))
+    # a transparent member's aux rows 0-4 are one contiguous 20c-byte slab
+    np.testing.assert_array_equal(
+        st.isect_aux.reshape(nc, 8 * c)[:, :5 * c].numpy(),
+        aux_j[:, :5, :].reshape(nc, 5 * c))
+    want = (aux_j[:, 0, :].max(axis=1) > 0.0).astype(np.int32)
+    assert st.isect_tflags.dtype == torch.int32
+    np.testing.assert_array_equal(st.isect_tflags.numpy(), want)
+    np.testing.assert_array_equal(ci.cluster_tflags(st.isect_aux).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("route", ["resident", "stream"])
+def test_wrappers_take_stream_inputs_on_cpu(scenes, route, monkeypatch):
+    """On the CPU the wrappers give the plain results with and without
+    the pack-time records and flags, and with a forced split."""
+    _, st = scenes["earth"]
+    if route == "stream":
+        monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
+    assert ci.route(st.cluster_aabb.shape[0], 128) == route
+    o, l, tmax = _shadow_rays(scenes["earth"][0], 16)
+    raysT, _ = ci.pack_raysT(_tv(o), _tv(l), 1e-3, torch.tensor(tmax))
+    sched, counts, params = ci.cluster_schedule(raysT, st.cluster_aabb)
+    a = (raysT, st.isect_coef, sched, counts, params)
+    oa = (raysT, st.isect_coef, st.isect_aux, sched, counts, params)
+    want_c = ci.closest_hit_plain(*a)
+    want_o = ci.occlusion_plain(*oa)
+    ci.reset_counters()
+    for kw, split in (({}, None), (dict(rec=st.isect_rec), None),
+                      (dict(rec=st.isect_rec), "all")):
+        with ci.forced_split(split) if split else contextlib.nullcontext():
+            for x, y in zip(ci.closest_hit(*a, **kw), want_c):
+                assert torch.equal(x, y)
+            kw = dict(kw, tflags=st.isect_tflags) if kw else kw
+            for x, y in zip(ci.occlusion(*oa, **kw), want_o):
+                assert torch.equal(x, y)
+    got = ci.counters()
+    assert got["closest_hit_plain"] == 3 and got["occlusion_plain"] == 3
+    assert got["closest_hit_stream"] == got["closest_hit"] == 0
+
+
+def test_wrappers_validate_stream_inputs(scenes, monkeypatch):
+    _, st = scenes["box"]
+    ro, rd = _primary(16)
+    raysT, _ = ci.pack_raysT(_tv(ro), _tv(rd), 1e-3, BIG_T)
+    sched, counts, params = ci.cluster_schedule(raysT, st.cluster_aabb)
+    a = (raysT, st.isect_coef, sched, counts, params)
+    oa = (raysT, st.isect_coef, st.isect_aux, sched, counts, params)
+    with pytest.raises(ValueError, match="rec"):
+        ci.closest_hit(*a, rec=st.isect_rec[:, :, :10].contiguous())
+    with pytest.raises(TypeError, match="rec"):
+        ci.closest_hit(*a, rec=st.isect_rec.double())
+    with pytest.raises(TypeError, match="tflags"):
+        ci.occlusion(*oa, tflags=st.isect_tflags.float())
+    with pytest.raises(ValueError, match="tflags"):
+        ci.occlusion(*oa, tflags=st.isect_tflags[:-1].contiguous())
+    with pytest.raises(KeyError):
+        with ci.forced_split("some"):
+            pass
+    assert ci._split is None
+    # a count of CUDA warps, and only the streaming kernels have them
+    with pytest.raises(ValueError, match="ray_visited"):
+        ci.occlusion(*oa, ray_visited=torch.zeros_like(counts))
+    monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
+    with pytest.raises(ValueError, match="ray_visited"):
+        ci.closest_hit(*a, ray_visited=torch.zeros_like(counts))
