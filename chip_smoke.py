@@ -8,10 +8,16 @@ non-zero):
   build          compile the CUDA kernels from fovtrace_torch/csrc; each
                  kernel's registers and spills from the log kept beside
                  its library, whichever process built it (none allowed
-                 in the streaming kernels)
+                 in the render path's four cluster kernel builds)
   kernels earth  the resident kernels against their plain PyTorch
                  versions (earth: 4,096 seeded random rays, the primary
-                 rays and the G-buffer shadow rays of a 256x256 frame)
+                 rays and the G-buffer shadow rays of a 256x256 frame);
+                 on each set, and on blocks that alternate near and far
+                 hits, the persistent grid forced to 1 CTA, 3 CTAs and
+                 the full grid, the ray blocks taken longest first and
+                 in ascending order, gives the default launch's results
+                 and work counts bit for bit (on one CTA, a bound of an
+                 earlier block must not end the next block's walk)
   kernels forced-stream
                  earth forced onto the streaming route (M = 1): closest
                  hit bit for bit the resident kernel's, occlusion bit for
@@ -32,15 +38,17 @@ non-zero):
   timing         each kernel, its plain version and its bound at the
                  main path's shapes: the 1920x1088 G-buffer and the
                  bounce-0 front of the earth (resident) and city
-                 (streaming) frames; the resident pair's inputs also
-                 through the streaming kernels; the streaming kernels
-                 without the heavy-block split, with and without the
-                 split CTAs in the grid (what the CTAs that return at
-                 once cost), with the pairs their warps computed and the
-                 bound of those pairs, and histograms of the member
-                 clusters tested per block and computed per ray; then
-                 each kernel's launches x (kernel - bound), the order of
-                 the redesign
+                 (streaming) frames, with the pairs the warps computed,
+                 the bound of those pairs, and histograms of the member
+                 clusters tested per block and computed per ray; the
+                 resident pair's persistent grid, its time with the ray
+                 blocks in ascending order, the wrapper's device time
+                 beside the kernel (profiled), and its inputs through
+                 the streaming kernels (bit for bit the same results);
+                 the streaming kernels without the heavy-block split,
+                 with and without the split CTAs in the grid (what the
+                 CTAs that return at once cost); then each kernel's
+                 launches x (kernel - bound), the order of the redesign
   probe micro    the six microbenchmark kernels (csrc/probes.cu) against
                  their plain versions at the script's 2,097,152 earth
                  primary rays (loop and slab bit for bit); each one's
@@ -64,6 +72,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +115,9 @@ OPS_PER_PAIR = 93
 OPS_SLAB = 26
 OPS_MM_PAIR = 84
 OPS_FULL_PAIR = 92
+# the render path's cluster kernels, whose builds may not spill
+RENDER_KERNELS = ("closest_kernel", "occlusion_kernel",
+                  "closest_stream_kernel", "occlusion_stream_kernel")
 
 
 def spills(log: str) -> dict:
@@ -122,11 +134,45 @@ def spills(log: str) -> dict:
     return out
 
 
+def render_spills(log: str) -> dict:
+    """`spills` of the render path's four cluster kernels, by name;
+    raises unless the log reports each of them."""
+    found = {}
+    for fn, v in spills(log).items():
+        m = re.search(r"\d+([a-z_]+_kernel)", fn)
+        if m and m.group(1) in RENDER_KERNELS:
+            found[m.group(1)] = v
+    if sorted(found) != sorted(RENDER_KERNELS):
+        raise AssertionError("no ptxas report of the four render-path "
+                             f"cluster kernels: {sorted(found)}")
+    return found
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True, text=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def dev_us(event) -> float:
+    """A profiler event's own device time in microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn) -> dict:
+    """{kernel name: device ms} of one call of fn, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: dev_us(e) / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -227,6 +273,74 @@ def compare(name, scene, ro, rd, tmin, tmax, dev, errs):
         assert d <= 1e-6, f"{name}: split occlusion off by {d}"
     errs[kc] = max(errs.get(kc, 0.0), t_err)
     errs[ko] = max(errs.get(ko, 0.0), a_err)
+
+
+def near_far_rays(dev, nb=6):
+    """Rays straight down onto earth's sphere (radius 0.8 at (0, 1, 0))
+    in nb ray blocks that alternate near and far: from 0.2 above its top
+    (every best hit within ~0.2), then from 8.2 above it (every hit
+    beyond 8), so that a near block's bound lies below every entry of
+    the far block after it."""
+    from fovtrace_torch.core.vec import Vec3
+    from fovtrace_torch.kernels import intersect as isect
+
+    rng = np.random.default_rng(13)
+    jit = rng.uniform(-0.2, 0.2, size=(nb * 256, 3))
+    y = np.where(np.arange(nb * 256) // 256 % 2 == 0, 2.0, 10.0)
+    ro = np.stack([jit[:, 0], y, jit[:, 2]], 1)
+    rd = np.tile([0.0, -1.0, 0.0], (nb * 256, 1))
+    v = lambda a: Vec3(*[torch.tensor(a[:, k], dtype=torch.float32,
+                                      device=dev) for k in range(3)])
+    return v(ro), v(rd), isect.BIG_T
+
+
+def resident_grids(label, scene, sets):
+    """The resident pair with its persistent grid forced to 1 CTA, 3
+    CTAs and as many as fit, taking the ray blocks longest first and in
+    ascending order: the default launch's (t, idx, ar, ag, ab) and work
+    counts (visited, ray_visited) bit for bit on every ray set. Every
+    set's default launch is held against the plain versions by
+    `compare`, but for the near / far blocks, whose closest hit is held
+    here: every ray hits, with the plain version's ids."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    for name, (ro, rd, tmax) in sets.items():
+        raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+        sched, counts, params = ci.cluster_schedule(raysT, scene.cluster_aabb)
+        nb = raysT.shape[0]
+
+        def run():
+            work = [torch.zeros_like(counts) for _ in range(4)]
+            ch = ci.closest_hit(raysT, scene.isect_coef, sched, counts,
+                                params, work[0], rec=scene.isect_rec,
+                                ray_visited=work[1])
+            oc = ci.occlusion(raysT, scene.isect_coef, scene.isect_aux,
+                              sched, counts, params, work[2],
+                              rec=scene.isect_rec, tflags=scene.isect_tflags,
+                              ray_visited=work[3])
+            return (*ch, *oc, *work)
+        ref = run()
+        if name == "nearfar":
+            _, ip = ci.closest_hit_plain(raysT, scene.isect_coef, sched,
+                                         counts, params)
+            assert bool((ip >= 0).all()) and torch.equal(ref[1], ip), \
+                f"{label} {name}: closest hit differs from the plain ids"
+        c = scene.isect_coef.shape[2] // 4
+        full = [ci.resident_ctas(k, nb, c) for k in ("closest_hit",
+                                                    "occlusion")]
+        bad = []
+        for ctas, order in [(n, o) for n in (1, 3, 0)
+                            for o in ("longest", "ascending")]:
+            with ci.forced_grid(ctas, order):
+                got = run()
+            if not all(torch.equal(x, y) for x, y in zip(ref, got)):
+                bad.append((ctas, order))
+        torch.cuda.synchronize()
+        print(f"[kernels] {label} {name}: resident pair on 1, 3 and all "
+              f"{full} CTAs ({nb} ray blocks), longest first and ascending: "
+              f"bit for bit the default launch's (t, idx, ar, ag, ab, "
+              f"visited, ray_visited): {not bad}")
+        assert not bad, f"{label} {name}: grid/order changed results {bad}"
 
 
 def ray_sets(scene, cam, dev):
@@ -450,8 +564,6 @@ def frame_profile(label, scene, cam, cfg, steady_ms, card):
         pipeline.render_frame(scene, cam, gaze, st, cfg)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in kern) / 1e3
@@ -500,12 +612,14 @@ def histogram(values, edges=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256)):
 def time_kernels(scene, captured, card, errs, times, kernel_iters,
                  plain_iters):
     """Kernel (CUDA events), plain version and bound at the captured
-    G-buffer and bounce-0 shapes; checks kernel against plain there. The
-    streaming kernels also without the heavy-block split, with and
-    without the split CTAs in the grid, with the pairs their warps
-    computed, the bound of those pairs, and the histograms of member
-    clusters tested per block and computed per ray; the resident kernels'
-    inputs also through the streaming ones."""
+    G-buffer and bounce-0 shapes; checks kernel against plain there.
+    Each kernel with the pairs its warps computed, the bound of those
+    pairs, and the histograms of member clusters tested per block and
+    computed per ray. The streaming kernels also without the heavy-block
+    split, with and without the split CTAs in the grid; the resident
+    kernels' persistent grid, their time with the ray blocks in
+    ascending order, the wrapper's device work beside the kernel's, and
+    their inputs through the streaming kernels."""
     from fovtrace_torch.kernels import cluster_isect as ci
 
     real = {"closest_hit": ci.closest_hit, "occlusion": ci.occlusion}
@@ -525,9 +639,8 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                 po = plain[kind](*a)
             p_ms = cuda_ms(run_plain, iters=plain_iters, warmup=0)
             visited = torch.zeros(nb, dtype=torch.int32, device=a[0].device)
-            rv = torch.zeros_like(visited) if stream else None
-            ko = real[kind](*a, **kw, visited=visited,
-                            **({"ray_visited": rv} if stream else {}))
+            rv = torch.zeros_like(visited)
+            ko = real[kind](*a, **kw, visited=visited, ray_visited=rv)
             torch.cuda.synchronize()
             if kind == "closest_hit":
                 flips = int(((ko[1] >= 0) != (po[1] >= 0)).sum())
@@ -548,11 +661,16 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                   f"pairs, {nbytes} B): kernel {k_ms:.3f} ms, plain "
                   f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({by}), {agree}  "
                   f"[{card}]", flush=True)
+            # the warps' own exits: the pairs they computed
+            wpairs = int(rv.sum()) * c
+            w_ms = max(wpairs * OPS_PER_PAIR / PEAK_F32,
+                       nbytes / PEAK_BYTES) * 1e3
+            computed = (f"warps computed {wpairs} pairs "
+                        f"({wpairs / max(pairs, 1):.3f} of the block pairs), "
+                        f"computed-pairs bound {w_ms:.3f} ms beside the block "
+                        f"bound {b_ms:.3f} ms")
+            counts = a[3 if kind == "closest_hit" else 4]
             if stream:
-                # the warps' own exits: the pairs they computed
-                wpairs = int(rv.sum()) * c
-                w_ms = max(wpairs * OPS_PER_PAIR / PEAK_F32,
-                           nbytes / PEAK_BYTES) * 1e3
                 # no ray block split: with no CTA for a split, then with
                 # the 8 nb split CTAs launched and returning at once
                 split_ms = {}
@@ -560,8 +678,7 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                     with ci.forced_split(mode):
                         split_ms[mode] = cuda_ms(
                             lambda: real[kind](*a, **kw), iters=kernel_iters)
-                heavy = int((a[3 if kind == "closest_hit" else 4]
-                             > ci.STREAM_HEAVY).sum())
+                heavy = int((counts > ci.STREAM_HEAVY).sum())
                 print(f"[timing] {name} {label}: {heavy} heavy blocks (> "
                       f"{ci.STREAM_HEAVY} live entries) split over 8 CTAs "
                       f"in {k_ms:.3f} ms; no block split "
@@ -569,28 +686,51 @@ def time_kernels(scene, captured, card, errs, times, kernel_iters,
                       f"{8 * nb} idle split CTAs launched "
                       f"{split_ms['idle']:.3f} ms (they cost "
                       f"{split_ms['idle'] - split_ms['none']:.3f} ms); "
-                      f"warps computed {wpairs} pairs "
-                      f"({wpairs / max(pairs, 1):.3f} of the block pairs), "
-                      f"computed-pairs bound {w_ms:.3f} ms beside the block "
-                      f"bound {b_ms:.3f} ms  [{card}]")
-                print(f"[timing] {name} {label} member clusters tested per "
-                      f"block: {histogram(visited)}")
-                print(f"[timing] {name} {label} member clusters computed "
-                      f"per ray (block mean): {histogram(rv / 256.0)}",
-                      flush=True)
+                      f"{computed}  [{card}]")
             else:
-                # does the streaming design carry over? the same inputs
-                # through the streaming kernel (M = 1, bit for bit equal)
+                # the persistent grid; the ray blocks in ascending order
+                # instead of longest first; the wrapper's device time
+                # (ticket sort and zero fills beside it)
+                ctas = ci.resident_ctas(kind, nb, c)
+                with ci.forced_grid(0, "ascending"):
+                    asc_ms = cuda_ms(lambda: real[kind](*a, **kw),
+                                     iters=kernel_iters)
+                # the wrapper's own device work beside the kernel
+                dev = device_ms(lambda: real[kind](*a, **kw))
+                kname = "closest_kernel" if kind == "closest_hit" else \
+                    "occlusion_kernel"
+                own = sum(v for k, v in dev.items() if kname in k)
+                other = sum(dev.values()) - own
+                # the same inputs through the streaming kernel (forced
+                # route; M = 1, bit for bit equal)
                 saved = ci._COEF_RESIDENT_BYTES
                 ci._COEF_RESIDENT_BYTES = 0
                 try:
                     s_ms = cuda_ms(lambda: real[kind](*a, **kw),
                                    iters=kernel_iters)
+                    so = real[kind](*a, **kw)
                 finally:
                     ci._COEF_RESIDENT_BYTES = saved
+                s_diff = float(max((x - y).abs().max()
+                                   for x, y in zip(so, ko)))
+                s_same = all(torch.equal(x, y) for x, y in zip(so, ko))
+                assert s_same or (kind == "occlusion" and s_diff <= 1e-6), \
+                    f"{name} {label}: streaming kernel differs by {s_diff}"
+                print(f"[timing] {name} {label}: {ctas} persistent CTAs for "
+                      f"{nb} ray blocks ({int((counts > 0).sum())} with live "
+                      f"entries), longest first in {k_ms:.3f} ms (profiled: "
+                      f"the kernel {own:.3f} ms, the ticket sort and zero "
+                      f"fills {other:.3f} ms of device time), ascending "
+                      f"order {asc_ms:.3f} ms; {computed}  [{card}]")
                 print(f"[timing] {name} {label} through the streaming "
                       f"kernel (forced route): {s_ms:.3f} ms against the "
-                      f"resident {k_ms:.3f} ms  [{card}]", flush=True)
+                      f"resident {k_ms:.3f} ms, results bit for bit equal "
+                      f"{s_same} (max |diff| {s_diff:.3e})  [{card}]")
+            print(f"[timing] {name} {label} member clusters tested per "
+                  f"block: {histogram(visited)}")
+            print(f"[timing] {name} {label} member clusters computed "
+                  f"per ray (block mean): {histogram(rv / 256.0)}",
+                  flush=True)
             times[(name, label)] = (k_ms, p_ms, b_ms, by, int(visited.sum()))
 
 
@@ -877,12 +1017,10 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {os.path.basename(lib)}: {line.strip()}")
-    stream = {k: v for k, v in spills(logs[0]).items()
-              if "stream_kernel" in k}
-    assert len(stream) == 2, f"no ptxas report of the streaming kernels: " \
-        f"{sorted(stream)}"
-    spilled = {k: v for k, v in stream.items() if any(v)}
-    assert not spilled, f"streaming kernels spill registers: {spilled}"
+    spilled = {k: v for k, v in render_spills(logs[0]).items() if any(v)}
+    assert not spilled, f"cluster kernels spill registers: {spilled}"
+    print(f"[build] no spills in the render path's cluster kernels: "
+          f"{', '.join(RENDER_KERNELS)}")
 
     cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
                         device=dev)
@@ -894,6 +1032,8 @@ def main() -> int:
     earth_sets = ray_sets(earth, cam, dev)
     for name, (ro, rd, tmax) in earth_sets.items():
         compare(f"earth {name}", earth, ro, rd, 1e-3, tmax, dev, errs)
+    resident_grids("earth", earth,
+                   {**earth_sets, "nearfar": near_far_rays(dev)})
 
     # ---- forced onto the streaming route -------------------------------------
     ph.start("kernels forced-stream")

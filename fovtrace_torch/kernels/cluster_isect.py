@@ -23,10 +23,12 @@ or once every ray is fully occluded (occlusion).
 
 Two routes, as in the reference: packs up to `_COEF_RESIDENT_BYTES`
 take the resident kernels (flat schedule, M == 1), larger packs the
-streaming kernels (`route`), which copy each live member's triangle
+streaming kernels (`route`). Both copy each live cluster's triangle
 records (`triangle_records`, built once per pack) into a ring of
-shared-memory stages. Each kernel wrapper launches the CUDA kernel of its
-route (`csrc/cluster_isect.cu`) on a CUDA tensor and runs the plain PyTorch
+shared-memory stages; the resident kernels run persistent CTAs that take
+the ray blocks from a ticket counter, longest first (`ticket_order`).
+Each kernel wrapper launches the CUDA kernel of its route
+(`csrc/cluster_isect.cu`) on a CUDA tensor and runs the plain PyTorch
 version on a CPU tensor; any other device raises. The wrappers count
 their launches and the plain versions their calls, so a run can show
 which one it used.
@@ -73,6 +75,10 @@ STREAM_HEAVY = 64
 _SPLIT_MODES = {"all": (-1, True), "none": (1 << 30, False),
                 "idle": (1 << 30, True)}
 _split = None
+# a resident grid and ticket order forced for tests and measurement
+# (`forced_grid`): (CTAs, order)
+_GRID_ORDERS = ("longest", "ascending")
+_grid = None
 
 
 def pick_cluster(t_pad_min: int) -> int:
@@ -168,7 +174,7 @@ def compute_pack(scene):
 
 
 def triangle_records(coef: torch.Tensor) -> torch.Tensor:
-    """[NC, c, 40] f32: the streaming kernels' per-triangle records,
+    """[NC, c, 40] f32: the kernels' per-triangle records,
     rec[jc, j, q*10 + k] = coef[jc, k, q*c + j] for the coefficient rows
     k = 0..9 and the columns q (t_num, det, u_num, v_num), so each member
     cluster is one contiguous c x 160-byte slab that a kernel copies into
@@ -417,6 +423,25 @@ def _nvcc_command(srcs, out):
             "-Xcompiler", "-fPIC", "-o", out, *srcs]
 
 
+def c_signatures() -> dict:
+    """{C entry point: (argtypes, restype)} of the kernel library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    out = {"fov_resident_ctas": ([i, i, i], i)}
+    # data pointers, then visited and ray_visited (may be NULL), the ints,
+    # the stream. The resident kernels take two more pointers (the ticket
+    # order and counter) and nb, c, sw, their forced-grid entry points the
+    # grid after; the streaming kernels nb, c, sw, m,
+    # their forced-split entry points heavy_at and nsplit after
+    for name, nptr in (("closest_hit", 7), ("occlusion", 10)):
+        for suffix, argtypes in (
+                ("", [p] * (nptr + 4) + [i] * 3 + [p]),
+                ("_grid", [p] * (nptr + 4) + [i] * 4 + [p]),
+                ("_stream", [p] * (nptr + 2) + [i] * 4 + [p]),
+                ("_stream_split", [p] * (nptr + 2) + [i] * 6 + [p])):
+            out[f"fov_{name}{suffix}"] = (argtypes, i)
+    return out
+
+
 def load_cuda_library() -> ctypes.CDLL:
     """The compiled kernel library (built at first use)."""
     global _cuda_lib
@@ -424,18 +449,10 @@ def load_cuda_library() -> ctypes.CDLL:
         path = _build.build_library("fovtrace_cluster_isect", [_CSRC],
                                     _nvcc_command, [TMA_HEADER])
         lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # data pointers, then visited (may be NULL), nb, c, sw, m, stream;
-        # the streaming kernels ray_visited (may be NULL) after visited,
-        # and their forced-split entry points heavy_at and nsplit after m
-        for name, nptr in (("closest_hit", 7), ("occlusion", 10)):
-            for suffix, argtypes in (
-                    ("", [p] * (nptr + 1) + [i, i, i, i, p]),
-                    ("_stream", [p] * (nptr + 2) + [i] * 4 + [p]),
-                    ("_stream_split", [p] * (nptr + 2) + [i] * 6 + [p])):
-                fn = getattr(lib, f"fov_{name}{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in c_signatures().items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _cuda_lib = lib
     return _cuda_lib
 
@@ -489,9 +506,6 @@ def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None,
                              "version walks every entry")
         if tuple(v.shape) != (nb,):
             raise ValueError(f"{name} must be [{nb}]")
-    if ray_visited is not None and route(nc, c) != "stream":
-        raise ValueError("ray_visited counts the streaming kernels' work; "
-                         "this pack takes the resident route")
     return nb, nc, c
 
 
@@ -513,6 +527,41 @@ def route(nc: int, c: int) -> str:
     return "resident"
 
 
+def ticket_order(counts: torch.Tensor) -> torch.Tensor:
+    """[NB] int64: the order in which the resident kernels' persistent
+    CTAs take the ray blocks, the most live entries first (ties in block
+    order), so that no long walk starts last. A stable sort on the
+    counts' device, with no host sync."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
+def resident_ctas(kind: str, nb: int, c: int) -> int:
+    """The persistent grid the resident kernel `kind` ("closest_hit" or
+    "occlusion") launches for nb ray blocks of cluster width c on the
+    current card: as many CTAs as fit at once, at most nb."""
+    n = load_cuda_library().fov_resident_ctas(int(kind == "occlusion"), nb, c)
+    if n < 0:
+        raise RuntimeError(f"{kind}: CUDA error {-n} sizing the grid")
+    return n
+
+
+@contextlib.contextmanager
+def forced_grid(ctas: int = 0, order: str = "longest"):
+    """For tests and measurement: inside the block the resident kernels
+    run `ctas` persistent CTAs (0: as many as fit, as the render path
+    does) and take the ray blocks longest first (`ticket_order`, as the
+    render path does) or in ascending block order."""
+    global _grid
+    if order not in _GRID_ORDERS or ctas < 0:
+        raise ValueError(f"forced_grid({ctas}, {order!r}): CTAs >= 0, "
+                         f"order in {_GRID_ORDERS}")
+    saved, _grid = _grid, (ctas, order)
+    try:
+        yield
+    finally:
+        _grid = saved
+
+
 @contextlib.contextmanager
 def forced_split(mode: str):
     """For tests and measurement: inside the block the streaming
@@ -528,27 +577,36 @@ def forced_split(mode: str):
         _split = saved
 
 
+def _tickets(counts):
+    """The resident kernels' (ticket order, zeroed ticket counter)."""
+    if _grid is not None and _grid[1] == "ascending":
+        order = torch.arange(counts.shape[0], device=counts.device)
+    else:
+        order = ticket_order(counts)
+    return order, torch.zeros(1, dtype=torch.int32, device=counts.device)
+
+
 def _launch(kind, r, raysT, ptrs, visited, ray_visited, shape):
     """Launch kernel `kind` ("closest_hit" or "occlusion") of route `r`
     on the current stream; raise on a CUDA error, count the launch.
     `ptrs` are its data tensors in the C function's order, `shape` its
-    (nb, c, sw, m). The streaming kernels' counts are zeroed first: a
-    split ray block's CTAs add theirs up."""
+    (nb, c, sw) on the resident route, (nb, c, sw, m) on the streaming
+    one. The counts are zeroed first: the warps (and a split ray block's
+    CTAs) add theirs up."""
     name = f"{kind}_stream" if r == "stream" else kind
     entry = name
     ptr = lambda t: None if t is None else t.data_ptr()
-    args = [ptr(t) for t in ptrs] + [ptr(visited)]
-    if r == "stream":
-        for v in (visited, ray_visited):
-            if v is not None:
-                v.zero_()
-        args += [ptr(ray_visited), *shape]
-        if _split is not None:
-            heavy_at, split_ctas = _split
-            entry = f"{name}_split"
-            args += [heavy_at, shape[0] if split_ctas else 0]
-    else:
-        args += list(shape)
+    for v in (visited, ray_visited):
+        if v is not None:
+            v.zero_()
+    args = [ptr(t) for t in ptrs] + [ptr(visited), ptr(ray_visited), *shape]
+    if r == "stream" and _split is not None:
+        heavy_at, split_ctas = _split
+        entry = f"{name}_split"
+        args += [heavy_at, shape[0] if split_ctas else 0]
+    elif r == "resident" and _grid is not None:
+        entry = f"{name}_grid"
+        args.append(_grid[0])
     err = getattr(load_cuda_library(), f"fov_{entry}")(
         *args, torch.cuda.current_stream(raysT.device).cuda_stream)
     if err != 0:
@@ -566,18 +624,19 @@ def closest_hit(raysT, coef, schedmask, counts, params, visited=None, *,
     `_closest_kernel_stream` (streaming route) of
     fovtrace/kernels/pallas_isect.py, by the pack's `route`. Both are
     bound by per-pair arithmetic issue, not by memory (source note in
-    csrc/cluster_isect.cu). The resident kernel stages each cluster's
-    coefficient slab in shared memory for one thread per ray. The
-    streaming kernel copies each live member's triangle records `rec`
-    (`triangle_records(coef)`, derived here when not given) into a ring
-    of shared-memory stages by TMA, gives each thread 4 rays and a share
-    of the member's triangles, merges the rays' (t, id) exactly at the
-    end of each entry, lets each warp stop on its own bound, and splits
-    a ray block with more than
-    STREAM_HEAVY live entries over eight CTAs; its ids and t equal the
-    resident kernel's. `visited`, an optional [NB] int32 CUDA tensor,
-    receives the member clusters each block tested; `ray_visited`
-    (streaming route only) rays x member clusters its warps computed."""
+    csrc/cluster_isect.cu). Both copy each live cluster's triangle
+    records `rec` (`triangle_records(coef)`, derived here when not given;
+    `coef` itself feeds only the plain version) into a ring of
+    shared-memory stages by TMA, give each thread 4 rays and a share of
+    the cluster's triangles, merge the rays' (t, id) exactly at the end
+    of each entry and let each warp stop on its own bound. The resident
+    kernel runs persistent CTAs that take the ray blocks longest first
+    through one ring; the streaming kernel runs a CTA per ray block and
+    splits a ray block with more than STREAM_HEAVY live entries over
+    eight CTAs. Their ids and t are equal on a flat schedule.
+    `visited`, an optional [NB] int32 CUDA tensor, receives the member
+    clusters each block tested; `ray_visited` rays x member clusters its
+    warps computed."""
     nb, nc, c = _check(raysT, coef, schedmask, counts, params,
                        visited=visited, rec=rec, ray_visited=ray_visited)
     if raysT.device.type == "cpu":
@@ -585,13 +644,17 @@ def closest_hit(raysT, coef, schedmask, counts, params, visited=None, *,
     t = torch.empty((nb, RAY_BLOCK), dtype=torch.float32, device=raysT.device)
     idx = torch.empty((nb, RAY_BLOCK), dtype=torch.int32, device=raysT.device)
     r = route(nc, c)
-    if r == "stream" and rec is None:
+    if rec is None:
         rec = triangle_records(coef)
-    if nb:
+    sw = schedmask.shape[1] // 2
+    if nb and r == "stream":
         _launch("closest_hit", r, raysT,
-                (raysT, rec if r == "stream" else coef, schedmask, counts,
-                 params, t, idx), visited, ray_visited,
-                (nb, c, schedmask.shape[1] // 2, pick_members(nc)))
+                (raysT, rec, schedmask, counts, params, t, idx), visited,
+                ray_visited, (nb, c, sw, pick_members(nc)))
+    elif nb:
+        _launch("closest_hit", r, raysT,
+                (raysT, rec, schedmask, counts, *_tickets(counts), params, t,
+                 idx), visited, ray_visited, (nb, c, sw))
     return t, idx
 
 
@@ -603,12 +666,11 @@ def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None, *,
     (fovtrace/kernels/pallas_isect.py). Bound and built like
     `closest_hit`; `tflags` is `cluster_tflags(aux)` (derived here when
     not given). Its early exits (every ray fully occluded, or the
-    schedule past t_max) end most blocks, or in the streaming kernel
-    most warps, after a few clusters. The streaming kernel multiplies a
-    transparent member's Fresnel factors per lane and then across the
-    lanes of a ray, in lane order: the product may round differently
-    from the resident kernel's sequential one (by at most a few ulp;
-    equal when a ray meets at most one factor after the first)."""
+    schedule past t_max) end most warps after a few clusters. The
+    kernels multiply a transparent member's Fresnel factors per lane and
+    then across the lanes of a ray, in lane order: the product may round
+    differently from the plain version's (by at most a few ulp; equal
+    when a ray meets at most one factor after the first)."""
     nb, nc, c = _check(raysT, coef, schedmask, counts, params, aux, visited,
                        rec=rec, tflags=tflags, ray_visited=ray_visited)
     if raysT.device.type == "cpu":
@@ -618,15 +680,20 @@ def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None, *,
     r = route(nc, c)
     if tflags is None:
         tflags = cluster_tflags(aux)
-    if r == "stream" and rec is None:
+    if rec is None:
         rec = triangle_records(coef)
-    if nb:
+    sw = schedmask.shape[1] // 2
+    outs = (out[0], out[1], out[2])
+    if nb and r == "stream":
         _launch("occlusion", r, raysT,
-                (raysT, rec if r == "stream" else coef, aux, tflags,
-                 schedmask, counts, params, out[0], out[1], out[2]),
-                visited, ray_visited,
-                (nb, c, schedmask.shape[1] // 2, pick_members(nc)))
-    return out[0], out[1], out[2]
+                (raysT, rec, aux, tflags, schedmask, counts, params, *outs),
+                visited, ray_visited, (nb, c, sw, pick_members(nc)))
+    elif nb:
+        _launch("occlusion", r, raysT,
+                (raysT, rec, aux, tflags, schedmask, counts,
+                 *_tickets(counts), params, *outs), visited, ray_visited,
+                (nb, c, sw))
+    return outs
 
 
 COUNTED = ("closest_hit", "occlusion", "closest_hit_stream",

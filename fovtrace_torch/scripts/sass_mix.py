@@ -1,22 +1,21 @@
 """Instruction mix of the cluster kernels' inner loops, read from the
 SASS that `cuobjdump -sass` prints for a built kernel library.
 
-    python -m fovtrace_torch.scripts.sass_mix [--all] [LIB.so ...]
+    python -m fovtrace_torch.scripts.sass_mix [LIB.so ...]
 
 With no library it builds (or reuses) the port's cluster library. For
-each kernel whose name holds `stream_kernel` (every kernel with --all)
-it finds the innermost loops that hold at least one pair's 40 FFMAs: a
-backward branch and the instructions from its target up to it. Per loop
-it counts FFMA, shared-memory loads (LDS of any width), the rest, and
-MUFU.RCP:
-each (ray, triangle) pair takes exactly one reciprocal (1 / det), so the
-loop's MUFU.RCP count is its pairs per iteration. The counts are static:
-an instruction in a branch inside the loop counts once, however rarely
-it runs (the division and the best-hit update run only for a pair that
-passes the edge tests). The IEEE division adds a few FFMAs per pair to
-the dot products' 40. The loop's head, from its first instruction to
-its first branch, is counted apart: where that branch skips what few
-pairs need, the head is the path most iterations take.
+each kernel it finds the innermost loops that hold at least one pair's
+40 FFMAs: a backward branch and the instructions from its target up to
+it. Per loop it counts FFMA, shared-memory loads (LDS of any width), the
+rest, and MUFU.RCP: each (ray, triangle) pair takes exactly one
+reciprocal (1 / det), so the loop's MUFU.RCP count is its pairs per
+iteration. The counts are static: an instruction in a branch inside the
+loop counts once, however rarely it runs (the division and the best-hit
+update run only for a pair that passes the edge tests). The IEEE
+division adds a few FFMAs per pair to the dot products' 40. The loop's
+head, from its first instruction to its first branch, is counted apart:
+where that branch skips what few pairs need, the head is the path most
+iterations take.
 
 It needs `cuobjdump` (the CUDA toolkit's, or the one Triton ships).
 """
@@ -119,12 +118,10 @@ def inner_loops(insns: List[tuple]) -> List[dict]:
             if not any(o is not lp and inside(o, lp) for o in loops)]
 
 
-def report(lib: str, everything: bool = False, tag: str = "[sass]") -> dict:
+def report(lib: str, tag: str = "[sass]") -> dict:
     """Print each kernel's inner-loop mix; {short name: [loops]}."""
     res = {}
     for name, insns in sorted(functions(lib).items()):
-        if not everything and "stream_kernel" not in name:
-            continue
         short = short_name(name)
         res[short] = inner_loops(insns)
         for lp in res[short]:
@@ -148,15 +145,13 @@ def report(lib: str, everything: bool = False, tag: str = "[sass]") -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("libs", nargs="*", help="built kernel libraries (.so)")
-    ap.add_argument("--all", action="store_true",
-                    help="every kernel, not only the streaming pair")
     args = ap.parse_args(argv)
     libs = args.libs
     if not libs:
         from fovtrace_torch.kernels import cluster_isect as ci
         libs = [ci.load_cuda_library()._name]
     for lib in libs:
-        report(lib, args.all)
+        report(lib)
     return 0
 
 

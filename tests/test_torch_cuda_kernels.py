@@ -1,9 +1,11 @@
 """The CUDA cluster kernels against their plain PyTorch versions, on the
-card: the resident kernels on earth, the streaming kernels on the city
-scene (M = 2), on earth forced to stream (bit for bit equal to the
-resident kernels), on multi forced to M = 16, on crafted exact ties and
-on blocks whose warps exit at different points, and with the ray blocks'
-split forced; then the probe kernels (csrc/probes.cu). Seeded rays. Marked `cuda`; skipped
+card: the resident kernels on earth (on every forced grid and ticket
+order, on blocks that alternate near and far hits, on crafted exact
+ties and on blocks whose warps exit at different points), the streaming
+kernels on the city scene (M = 2), on earth forced to stream (bit for
+bit equal to the resident kernels), on multi forced to M = 16, on the
+same ties and warp exits, and with the ray blocks' split forced; then
+the probe kernels (csrc/probes.cu). Seeded rays. Marked `cuda`; skipped
 without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -172,12 +174,12 @@ def _stream_earth(monkeypatch, members):
     assert ci.pick_members(44) == members
 
 
-def test_stream_ties_give_plain_ids(earth, dev, monkeypatch):
-    """Exact ties everywhere: triangle 2i+1 of each cluster is triangle
-    2i (lanes of different triangle groups), and cluster 2e+1 is cluster
-    2e (the two members of entry e at M = 2). The kernel must keep the
-    plain version's ids: the earliest member, then the lowest lane."""
-    _stream_earth(monkeypatch, 2)
+def _tied_pack(earth):
+    """Earth's pack with exact ties everywhere: triangle 2i+1 of each
+    cluster is triangle 2i (lanes of different triangle groups), and
+    cluster 2e+1 is cluster 2e (the two members of entry e at M = 2;
+    at M = 1 two entries with one key, the lower id first). Returns
+    (coef, aux, aabb, rec)."""
     coef, aux, aabb = (earth.isect_coef.clone(), earth.isect_aux.clone(),
                        earth.cluster_aabb.clone())
     nc, c = coef.shape[0], coef.shape[2] // 4
@@ -185,7 +187,14 @@ def test_stream_ties_give_plain_ids(earth, dev, monkeypatch):
     lanes[..., 1::2] = lanes[..., 0::2]
     for a in (coef, aux, aabb):
         a[1::2] = a[0::2]
-    rec = ci.triangle_records(coef)
+    return coef, aux, aabb, ci.triangle_records(coef)
+
+
+def _assert_ties_give_plain_ids(earth, dev, counter):
+    """On the tied pack the kernel `counter` keeps the plain version's
+    ids: the earliest member or entry, then the lowest lane."""
+    coef, aux, aabb, rec = _tied_pack(earth)
+    c = coef.shape[2] // 4
     hits = 0
     for rays in ("random", "primary", "ragged"):
         ro, rd, tmax = _ray_sets(earth, dev)[rays]
@@ -194,7 +203,7 @@ def test_stream_ties_give_plain_ids(earth, dev, monkeypatch):
         ci.reset_counters()
         tk, ik = ci.closest_hit(raysT, coef, sched, counts, params, rec=rec)
         torch.cuda.synchronize()
-        assert ci.counters()["closest_hit_stream"] == 1
+        assert ci.counters()[counter] == 1
         tp, ip = ci.closest_hit_plain(raysT, coef, sched, counts, params)
         hit = ip >= 0
         hits += int(hit.sum())
@@ -205,15 +214,98 @@ def test_stream_ties_give_plain_ids(earth, dev, monkeypatch):
     assert hits > 0
 
 
-@pytest.mark.parametrize("members", [1, 2])
-def test_stream_occlusion_warps_exit_alone(earth, dev, members, monkeypatch):
-    """Blocks whose warps differ, by warp w of each block: w % 4 == 0
-    rays fall on the opaque sphere (fully occluded), 1 the same with a
-    t_max short of it, 2 end inside the refractive box, having crossed
-    its top only (one Fresnel factor), 3 seeded random directions. Equal
-    to the plain version, and to the resident kernel within 1e-6; each
-    warp computes no more member clusters than its block tested, and
-    together they compute fewer than all 256 rays' worth."""
+def test_stream_ties_give_plain_ids(earth, dev, monkeypatch):
+    """Exact ties at M = 2 on the streaming route (`_tied_pack`)."""
+    _stream_earth(monkeypatch, 2)
+    _assert_ties_give_plain_ids(earth, dev, "closest_hit_stream")
+
+
+def test_resident_ties_give_plain_ids(earth, dev):
+    """Exact ties at M = 1 on the resident route (`_tied_pack`): the
+    persistent kernel merges each entry's lanes exactly and keeps the
+    earlier of two entries with one key."""
+    assert ci.route(44, 128) == "resident"
+    _assert_ties_give_plain_ids(earth, dev, "closest_hit")
+
+
+@pytest.mark.parametrize("rays", ["random", "primary", "ragged"])
+def test_resident_grid_and_order_do_not_change_results(earth, dev, rays):
+    """The persistent resident kernels on as many CTAs as fit, on 1 and
+    on 3, taking the ray blocks longest first and in ascending order: the
+    same (t, idx), attenuation and work counts bit for bit (one CTA
+    computes each block whole), equal to the plain version."""
+    ro, rd, tmax = _ray_sets(earth, dev)[rays]
+    raysT, _ = ci.pack_raysT(ro, rd, 1e-3, tmax)
+    sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+    nb = raysT.shape[0]
+    for kind in ("closest_hit", "occlusion"):
+        assert 1 <= ci.resident_ctas(kind, nb, 128) <= nb
+    out = []
+    for ctas, order in [(n, o) for n in (0, 1, 3)
+                        for o in ("longest", "ascending")]:
+        work = [torch.zeros_like(counts) for _ in range(4)]
+        with ci.forced_grid(ctas, order):
+            ch = ci.closest_hit(raysT, earth.isect_coef, sched, counts,
+                                params, work[0], rec=earth.isect_rec,
+                                ray_visited=work[1])
+            oc = torch.stack(ci.occlusion(
+                raysT, earth.isect_coef, earth.isect_aux, sched, counts,
+                params, work[2], rec=earth.isect_rec,
+                tflags=earth.isect_tflags, ray_visited=work[3]))
+        out.append((ch, oc, work))
+    torch.cuda.synchronize()
+    c0, o0, w0 = out[0]
+    for c1, o1, w1 in out[1:]:
+        assert torch.equal(c0[0], c1[0]) and torch.equal(c0[1], c1[1])
+        assert torch.equal(o0, o1)
+        assert all(torch.equal(a, b) for a, b in zip(w0, w1))
+    _assert_matches_plain(earth, raysT, sched, counts, params, c0, o0)
+    # each warp computes a prefix of its block's walk
+    for visited, rv in ((w0[0], w0[1]), (w0[2], w0[3])):
+        assert bool((visited <= counts).all())
+        assert bool((rv <= 256 * visited).all())
+        assert bool((rv >= 32 * visited).all())
+
+
+def test_resident_bounds_of_an_earlier_block_end_nothing(earth, dev):
+    """The producer of a persistent CTA stages the next ray block's
+    entries while the warps still publish bounds for the current one; a
+    bound published for an earlier block must not end the next block's
+    walk. One CTA takes blocks that alternate near and far: rays straight down
+    onto the sphere (radius 0.8 at (0, 1, 0)) from 0.2 above its top,
+    every best hit within ~0.2, then from 8.2 above it, every hit beyond
+    8, so a near block's bound lies below every far-block entry. Every
+    ray hits, with the plain version's ids."""
+    nb = 6
+    r = np.random.default_rng(13)
+    jit = r.uniform(-0.2, 0.2, size=(nb * 256, 3))
+    y = np.where(np.arange(nb * 256) // 256 % 2 == 0, 2.0, 10.0)
+    ro = np.stack([jit[:, 0], y, jit[:, 2]], 1)
+    rd = np.tile([0.0, -1.0, 0.0], (nb * 256, 1))
+    v = lambda a: Vec3(*[torch.tensor(a[:, k], dtype=torch.float32,
+                                      device=dev) for k in range(3)])
+    raysT, _ = ci.pack_raysT(v(ro), v(rd), 1e-3, isect.BIG_T)
+    sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+    tp, ip = ci.closest_hit_plain(raysT, earth.isect_coef, sched, counts,
+                                  params)
+    assert bool((ip >= 0).all())
+    for order in ("ascending", "longest"):
+        visited = torch.zeros_like(counts)
+        with ci.forced_grid(1, order):
+            tk, ik = ci.closest_hit(raysT, earth.isect_coef, sched, counts,
+                                    params, visited, rec=earth.isect_rec)
+        torch.cuda.synchronize()
+        assert torch.equal(ik, ip), order
+        torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+        assert bool((visited[1::2] > 0).all())
+
+
+def _warp_mix_rays(dev):
+    """(raysT, warp) of 8 ray blocks whose warps differ, by warp w of
+    each block: w % 4 == 0 rays fall on the opaque sphere (fully
+    occluded), 1 the same with a t_max short of it, 2 end inside the
+    refractive box, having crossed its top only (one Fresnel factor), 3
+    seeded random directions."""
     n = 8 * 256
     r = np.random.default_rng(11)
     warp = (np.arange(n) % 256) // 32
@@ -238,6 +330,29 @@ def test_stream_occlusion_warps_exit_alone(earth, dev, members, monkeypatch):
     raysT, _ = ci.pack_raysT(v(ro), v(rd), 1e-3,
                              torch.tensor(tmax, dtype=torch.float32,
                                           device=dev))
+    return raysT, warp
+
+
+def _assert_warp_mix(want, warp, visited, rv, dev):
+    """The warp mix's attenuation by warp, and the work counts: every
+    ray at most its block's tested members, the warp that tested them
+    all at least 32 rays' worth, together fewer than all 256 rays'."""
+    sel = lambda q: torch.tensor(warp % 4 == q, device=dev)
+    flat = want.reshape(3, -1)
+    assert bool((flat[:, sel(0)] == 0).all())
+    assert bool((flat[:, sel(1)] == 1).all())
+    part = flat[:, sel(2)]
+    assert bool(((part > 0) & (part < 1)).all())
+    assert bool((rv <= 256 * visited).all())
+    assert bool((rv >= 32 * visited).all())
+    assert int(rv.sum()) < 256 * int(visited.sum())
+
+
+@pytest.mark.parametrize("members", [1, 2])
+def test_stream_occlusion_warps_exit_alone(earth, dev, members, monkeypatch):
+    """The warp mix (`_warp_mix_rays`) on the streaming route: equal to
+    the plain version, and to the resident kernel within 1e-6."""
+    raysT, warp = _warp_mix_rays(dev)
     sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
     args = (raysT, earth.isect_coef, earth.isect_aux, sched, counts, params)
     kw = dict(rec=earth.isect_rec, tflags=earth.isect_tflags)
@@ -253,17 +368,32 @@ def test_stream_occlusion_warps_exit_alone(earth, dev, members, monkeypatch):
     want = torch.stack(ci.occlusion_plain(*args))
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert float((got - resident).abs().max()) <= 1e-6
-    sel = lambda q: torch.tensor(warp % 4 == q, device=dev)
-    flat = want.reshape(3, -1)
-    assert bool((flat[:, sel(0)] == 0).all())
-    assert bool((flat[:, sel(1)] == 1).all())
-    part = flat[:, sel(2)]
-    assert bool(((part > 0) & (part < 1)).all())
-    # rays x member clusters: every ray at most its block's tested
-    # members, the warp that tested them all at least 32 rays' worth
-    assert bool((rv <= 256 * visited).all())
-    assert bool((rv >= 32 * visited).all())
-    assert int(rv.sum()) < 256 * int(visited.sum())
+    _assert_warp_mix(want, warp, visited, rv, dev)
+
+
+def test_resident_occlusion_warps_exit_alone(earth, dev):
+    """The warp mix on the resident route, transparent members included:
+    equal to the plain version, each warp stopping on its own, on one
+    CTA as on the full grid."""
+    raysT, warp = _warp_mix_rays(dev)
+    sched, counts, params = ci.cluster_schedule(raysT, earth.cluster_aabb)
+    args = (raysT, earth.isect_coef, earth.isect_aux, sched, counts, params)
+    kw = dict(rec=earth.isect_rec, tflags=earth.isect_tflags)
+    assert int(earth.isect_tflags.sum()) > 0
+    want = torch.stack(ci.occlusion_plain(*args))
+    got = []
+    for ctas in (0, 1):
+        visited = torch.zeros_like(counts)
+        rv = torch.zeros_like(counts)
+        ci.reset_counters()
+        with ci.forced_grid(ctas):
+            got.append(torch.stack(ci.occlusion(
+                *args, visited=visited, ray_visited=rv, **kw)))
+        torch.cuda.synchronize()
+        assert ci.counters()["occlusion"] == 1
+        torch.testing.assert_close(got[-1], want, rtol=1e-4, atol=1e-4)
+        _assert_warp_mix(want, warp, visited, rv, dev)
+    assert torch.equal(got[0], got[1])
 
 
 def test_stream_wrappers_refuse_mixed_devices(city, dev):

@@ -5,6 +5,7 @@ interpret mode (as tests/test_pallas_isect.py runs them on the CPU), and
 the brute-force oracles against each other."""
 
 import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -334,9 +335,104 @@ def test_wrappers_validate_stream_inputs(scenes, monkeypatch):
         with ci.forced_split("some"):
             pass
     assert ci._split is None
-    # a count of CUDA warps, and only the streaming kernels have them
-    with pytest.raises(ValueError, match="ray_visited"):
-        ci.occlusion(*oa, ray_visited=torch.zeros_like(counts))
-    monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
-    with pytest.raises(ValueError, match="ray_visited"):
-        ci.closest_hit(*a, ray_visited=torch.zeros_like(counts))
+    with pytest.raises(ValueError, match="order"):
+        with ci.forced_grid(3, "random"):
+            pass
+    with pytest.raises(ValueError, match="CTAs"):
+        with ci.forced_grid(-1):
+            pass
+    assert ci._grid is None
+    # a count of CUDA warps: both routes' kernels take it, the plain
+    # version (every CPU call) has none
+    for r in ("resident", "stream"):
+        if r == "stream":
+            monkeypatch.setattr(ci, "_COEF_RESIDENT_BYTES", 0)
+        assert ci.route(st.cluster_aabb.shape[0], 128) == r
+        with pytest.raises(ValueError, match="ray_visited counts a CUDA"):
+            ci.occlusion(*oa, ray_visited=torch.zeros_like(counts))
+        with pytest.raises(ValueError, match="ray_visited counts a CUDA"):
+            ci.closest_hit(*a, ray_visited=torch.zeros_like(counts))
+
+
+def test_ticket_order_is_stable_longest_first():
+    """The resident kernels' ticket order: a permutation of the ray
+    blocks, the most live entries first, ties in block order (numpy's
+    stable sort of the negated counts)."""
+    r = np.random.default_rng(5)
+    for n in (1, 7, 300, 8160):
+        counts = torch.tensor(r.integers(0, 12, size=n), dtype=torch.int32)
+        order = ci.ticket_order(counts)
+        assert order.dtype == torch.int64 and order.shape == (n,)
+        np.testing.assert_array_equal(
+            order.numpy(), np.argsort(-counts.numpy(), kind="stable"))
+        assert torch.equal(torch.sort(order).values, torch.arange(n))
+        c = counts[order]
+        assert bool((c[:-1] >= c[1:]).all())
+        tie = c[:-1] == c[1:]
+        assert bool((order[:-1][tie] < order[1:][tie]).all())
+
+
+class _Lib:
+    """Stands in for the kernel library: records each entry point's
+    arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("force", [None, "grid", "split"])
+@pytest.mark.parametrize("r", ["resident", "stream"])
+@pytest.mark.parametrize("kind", ["closest_hit", "occlusion"])
+def test_launch_arguments_fit_the_c_entry_points(scenes, kind, r, force,
+                                                 monkeypatch):
+    """`_launch` passes each C entry point as many arguments as its
+    ctypes signature has, pointers where it takes pointers (NULL for an
+    absent count) and ints where it takes ints: the resident kernels
+    take rec, the ticket order and counter and ray_visited; a forced
+    grid or split adds its ints. Run on CPU tensors against a stand-in
+    library."""
+    _, st = scenes["earth"]
+    lib = _Lib()
+    monkeypatch.setattr(ci, "load_cuda_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    ro, rd = _primary(16)
+    raysT, _ = ci.pack_raysT(_tv(ro), _tv(rd), 1e-3, BIG_T)
+    sched, counts, params = ci.cluster_schedule(raysT, st.cluster_aabb)
+    nb, c = raysT.shape[0], 128
+    out = torch.empty((3, nb, 256))
+    head = (raysT, st.isect_rec) if kind == "closest_hit" else \
+        (raysT, st.isect_rec, st.isect_aux, st.isect_tflags)
+    tail = (out[0], out[1].view(torch.int32)) if kind == "closest_hit" \
+        else (out[0], out[1], out[2])
+    if r == "resident":
+        ptrs = head + (sched, counts, *ci._tickets(counts), params) + tail
+        shape = (nb, c, sched.shape[1] // 2)
+    else:
+        ptrs = head + (sched, counts, params) + tail
+        shape = (nb, c, sched.shape[1] // 2, 1)
+    visited = torch.ones_like(counts)
+    ctx = {None: contextlib.nullcontext(), "grid": ci.forced_grid(2),
+           "split": ci.forced_split("all")}[force]
+    ci.reset_counters()
+    with ctx:
+        ci._launch(kind, r, raysT, ptrs, visited, None, shape)
+    (name, args), = lib.calls
+    suffix = {("resident", "grid"): "_grid",
+              ("stream", None): "_stream", ("stream", "grid"): "_stream",
+              ("stream", "split"): "_stream_split"}.get((r, force), "")
+    assert name == f"fov_{kind}{suffix}"
+    argtypes, _ = ci.c_signatures()[name]
+    assert len(args) == len(argtypes)
+    for v, t in zip(args, argtypes):
+        assert (v is None or isinstance(v, int)), (name, v)
+        if t is ctypes.c_int:
+            assert isinstance(v, int) and -1 <= v < 1 << 31, (name, v)
+    # visited is zeroed before the launch, ray_visited is NULL
+    assert int(visited.sum()) == 0
+    assert args[len(ptrs)] == visited.data_ptr()
+    assert args[len(ptrs) + 1] is None
+    assert ci.counters()[kind + ("_stream" if r == "stream" else "")] == 1

@@ -75,3 +75,17 @@ def test_inner_loop_counts():
         [(0, 0x280)]
     # fewer than one pair's 40 FFMAs: not a pair loop
     assert sass_mix.inner_loops(resident[1:]) == []
+
+
+def test_report_covers_every_kernel(monkeypatch, capsys):
+    """The report reads every kernel of a library, the resident pair as
+    well as the streaming one, with one line per pair loop."""
+    monkeypatch.setattr(sass_mix, "functions",
+                        lambda lib: sass_mix.parse(_listing()))
+    res = sass_mix.report("lib.so")
+    assert sorted(res) == ["closest_kernel", "closest_stream_kernel<4>"]
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2 and all(ln.startswith("[sass] lib.so ")
+                                   for ln in lines)
+    assert "pairs per iteration 1; per pair FFMA 40.00" in lines[1]
+    assert "pairs per iteration 0; per pair FFMA n/a" in lines[0]
