@@ -59,9 +59,32 @@ non-zero):
                  its numpy check and the plain version, then at the city
                  G-buffer's schedule (8,160 blocks, SW 768) against the
                  plain version, timed against its bytes bound
+  main earth fwd+bwd
+                 bench.py's default step (pipeline.grad_step: the gradient
+                 of the mean image with respect to emission, kd, eye and
+                 target) on earth at 1920x1088, one warm and 3 timed steps:
+                 ms/step, Mrays/s (the forward's rays_traced), peak memory,
+                 gradient norms (finite, nonzero), launches per step, the
+                 camera inverse's host round trips per step; then a
+                 torch.profiler summary of one step (forward and backward
+                 device time, busy share, the costliest backward functions)
+  main earth fwd+bwd remat
+                 the same with remat_shade: peak memory beside the run
+                 without, one more closest-hit and occlusion launch per
+                 bounce, gradients within rtol 1e-4
+  main city fwd+bwd
+                 the fwd+bwd step on city through the streaming kernels
   parity         256x256 frames with the kernels vs with the plain
                  versions (earth, city); a 64x64 earth frame vs
                  tests/golden/earth.npz
+  grad parity    the 64x64 earth golden's gradient fingerprint (rtol 2e-3)
+  modes          earth at 1920x1088 with reconstruction jfa, sibson (R 16)
+                 and all, and sampling weier, author and logpolar: budget
+                 from a probe frame, one warm and one timed frame, stage
+                 times, finite images and no rays dropped; then the three
+                 64x64 mode goldens (earth_jfa against its golden; the
+                 stale earth_sibson and earth_logpolar against the port's
+                 CPU frames)
 Neither probe runs on a render path: their kernels' launches on the main
 paths are 0.
 The line before last is the card's name and power limit, the one before
@@ -426,14 +449,15 @@ def probe_calls() -> dict:
             if k.startswith(("micro_", "smem_dma"))}
 
 
-def bench_probe_frac(scene, cam):
+def bench_probe_frac(scene, cam, **extra):
     """bench.py's budget sizing: one probe frame; if the mask is denser
-    than the budget, raise the fraction to cover it plus 2%."""
+    than the budget, raise the fraction to cover it plus 2%. `extra`
+    overrides the bench configuration (a sampling mode, say)."""
     from fovtrace_torch.config import RenderConfig
     from fovtrace_torch.render import pipeline
 
     cfg = RenderConfig(width=W, height=H, ray_budget_frac=0.50,
-                       full_outputs=False, **GAZE_CFG)
+                       full_outputs=False, **{**GAZE_CFG, **extra})
     probe, _ = pipeline.render_frame(scene, cam, (H // 2, W // 2),
                                      pipeline.FrameState.initial(cam, cfg),
                                      cfg)
@@ -516,18 +540,10 @@ def capture_inputs(scene, cam, cfg):
     return captured
 
 
-def frame_profile(label, scene, cam, cfg, steady_ms, card):
-    """Stage times of one frame (a synchronise after each stage), then a
-    torch.profiler pass over another: device kernels launched, summed
-    device time, its share of the unprofiled steady frame, top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def stage_times(scene, cam, cfg, st, gaze) -> dict:
+    """ms of each stage of one frame, a synchronise after each stage."""
     from fovtrace_torch.render import pipeline
 
-    gaze = (H // 2, W // 2)
-    st = pipeline.FrameState.initial(cam, cfg)
-    _, st = pipeline.render_frame(scene, cam, gaze, st, cfg)
     ms = {}
     t0 = time.perf_counter()
 
@@ -553,9 +569,29 @@ def frame_profile(label, scene, cam, cfg, steady_ms, card):
     tick("shade")
     pipeline.stage_reconstruct(rgb, alpha, gbuf, cfg)
     tick("reconstruct")
+    return ms
+
+
+def fmt_stages(ms: dict) -> str:
+    return (", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+            + f"; sum {sum(ms.values()):.2f}")
+
+
+def frame_profile(label, scene, cam, cfg, steady_ms, card):
+    """Stage times of one frame (a synchronise after each stage), then a
+    torch.profiler pass over another: device kernels launched, summed
+    device time, its share of the unprofiled steady frame, top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovtrace_torch.render import pipeline
+
+    gaze = (H // 2, W // 2)
+    st = pipeline.FrameState.initial(cam, cfg)
+    _, st = pipeline.render_frame(scene, cam, gaze, st, cfg)
+    ms = stage_times(scene, cam, cfg, st, gaze)
     print(f"[profile] {label} stages (ms, each ending in a synchronise): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
-          + f"; sum {sum(ms.values()):.2f}  [{card}]")
+          f"{fmt_stages(ms)}  [{card}]")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -981,6 +1017,215 @@ def frame_parity(label, scene, cam):
     assert mae < 5e-3
 
 
+def grad_norms(grads) -> str:
+    return ", ".join(f"|d {k}| {float(g.norm()):.6e}" for k, g in grads.items())
+
+
+def fwd_bwd(label, scene, cam, cfg, card, steps):
+    """bench.py's fwd+bwd (pipeline.grad_step: the gradient of the mean
+    image with respect to emission, kd, eye and target, the state of one
+    earlier frame held constant) at cfg, one warm step and `steps` timed
+    ones, each ending in a synchronise. The launch counts cover exactly
+    the timed steps. Returns (grads of the last step, steady ms/step,
+    state, counts per step)."""
+    from fovtrace_torch import kernels
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.render import pipeline
+
+    gaze = (H // 2, W // 2)
+    with torch.no_grad():
+        _, st = pipeline.render_frame(scene, cam, gaze,
+                                      pipeline.FrameState.initial(cam, cfg),
+                                      cfg)
+    pipeline.grad_step(scene, cam, gaze, st, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ci.reset_counters()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, grads, out = pipeline.grad_step(scene, cam, gaze, st, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ci.counters()
+    inv_syncs = kernels.CALLS["inv4_host"] / steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rays = int(out["rays_traced"])
+    steady = float(np.mean(ms))
+    per_step = {k: v / steps for k, v in counts.items()}
+    print(f"[{label}] steps {', '.join(f'{t:.2f}' for t in ms)} ms; steady "
+          f"{steady:.2f} ms/step, rays_traced {rays} (forward), "
+          f"{rays / steady / 1e3:.2f} Mrays/s; peak memory {peak:.2f} GiB "
+          f"({base / 2**30:.2f} GiB before the steps); loss "
+          f"{float(loss):.6f}  [{card}]")
+    print(f"[{label}] {grad_norms(grads)}")
+    print(f"[{label}] launches per step {json.dumps(per_step)}; camera "
+          f"inverse host round trips (device syncs) per step {inv_syncs:g}")
+    assert int(out["rays_dropped"]) == 0, "the budget truncated the mask"
+    for k, g in grads.items():
+        assert bool(torch.isfinite(g).all()), (k, g)
+        assert float(g.abs().sum()) > 0, f"zero gradient for {k}"
+    for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
+              "occlusion_brute"):
+        assert counts[k] == 0, (k, counts)
+    return grads, steady, st, per_step, peak
+
+
+def _parents(e):
+    """A profiler event's enclosing CPU events, innermost first."""
+    p = e.cpu_parent
+    while p is not None:
+        yield p
+        p = p.cpu_parent
+
+
+def fwd_bwd_profile(label, scene, cam, cfg, st, steady_ms, card):
+    """torch.profiler over one fwd+bwd step: device kernels, summed device
+    time split into forward and backward (the backward is what runs
+    under autograd's evaluate_function events, a remat recompute
+    included), the device's busy share of the unprofiled step, and the
+    backward functions with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovtrace_torch.render import pipeline
+
+    gaze = (H // 2, W // 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipeline.grad_step(scene, cam, gaze, st, cfg)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    total = sum(dev_us(e) for e in kern) / 1e3
+    launched = sum(e.count for e in kern)
+    tag = "autograd::engine::evaluate_function: "
+    bwd = {}
+    for e in prof.events():
+        if e.name.startswith(tag) and not any(
+                p.name.startswith(tag) for p in _parents(e)):
+            dt = (e.device_time_total if hasattr(e, "device_time_total")
+                  else e.cuda_time_total) / 1e3
+            bwd[e.name[len(tag):]] = bwd.get(e.name[len(tag):], 0.0) + dt
+    bwd_ms = sum(bwd.values())
+    print(f"[{label} profile] one step: {launched} device kernels, summed "
+          f"device time {total:.2f} ms (forward {total - bwd_ms:.2f}, "
+          f"backward {bwd_ms:.2f}) in a {wall:.2f} ms wall with the profiler "
+          f"on; device busy {100 * total / steady_ms:.1f}% of the "
+          f"{steady_ms:.2f} ms steady step  [{card}]")
+    for name, ms in sorted(bwd.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[{label} profile]   backward {ms:8.2f} ms  {name[:80]}")
+    top = sorted(kern, key=lambda e: -dev_us(e))[:6]
+    for e in top:
+        print(f"[{label} profile]   kernel {dev_us(e) / 1e3:8.2f} ms "
+              f"{e.count:5d} x {e.key[:80]}")
+
+
+def golden_grad_parity(earth, cam):
+    """tests/golden/earth.npz's gradient fingerprint, from the golden's
+    loss (the mean image of one 64x64 frame started from the
+    differentiated camera), at the golden's rtol 2e-3."""
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.render import pipeline
+
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "golden", "earth.npz"))
+    gcfg = RenderConfig(width=64, height=64, reconstruction="atrous",
+                        max_depth=3, diffuse_max_depth=1, ray_budget_frac=0.6)
+    _, g, _ = pipeline.grad_step(earth, cam, (32, 32), None, gcfg)
+    fp = np.asarray([f(g[k]) for k in ("emission", "kd", "eye")
+                     for f in (lambda t: float(t.norm()),
+                               lambda t: float(t.mean()))])
+    want = ref["grad_fp"]
+    rel = np.abs(fp - want) / np.abs(want)
+    print(f"[grad parity] 64x64 earth grad_fp {np.array2string(fp, precision=6)}"
+          f" vs golden {np.array2string(want, precision=6)}: max relative "
+          f"error {rel.max():.3e} (rtol 2e-3)")
+    np.testing.assert_allclose(fp, want, rtol=2e-3, atol=1e-7)
+
+
+MODES = (("jfa", dict(reconstruction="jfa")),
+         ("sibson", dict(reconstruction="sibson", sibson_max_radius=16)),
+         ("all", dict(reconstruction="all", sibson_max_radius=16)),
+         ("weier", dict(sampling_mode="weier")),
+         ("author", dict(sampling_mode="author")),
+         ("logpolar", dict(sampling_mode="logpolar")))
+
+
+def modes(earth, cam, card):
+    """Earth at W x H in each sampling mode and reconstruction the bench
+    does not run: budget sized by a probe frame, one warm frame, one
+    timed frame, then its stage times."""
+    from fovtrace_torch.render import pipeline
+
+    gaze = (H // 2, W // 2)
+    for name, extra in MODES:
+        need, frac, cfg = bench_probe_frac(earth, cam, **extra)
+        st = pipeline.FrameState.initial(cam, cfg)
+        _, st = pipeline.render_frame(earth, cam, gaze, st, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = pipeline.render_frame(earth, cam, gaze, st, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        img = torch.stack(list(out["image_rgb"]))
+        print(f"[modes] {name}: mask {100 * need:.2f}% -> ray_budget_frac "
+              f"{frac}; frame {ms:.2f} ms, rays_traced "
+              f"{int(out['rays_traced'])}, rays_dropped "
+              f"{int(out['rays_dropped'])}, image mean {float(img.mean()):.4f}"
+              f"  [{card}]")
+        print(f"[modes] {name} stages: "
+              f"{fmt_stages(stage_times(earth, cam, cfg, st, gaze))}")
+        assert int(out["rays_dropped"]) == 0, name
+        assert bool(torch.isfinite(img).all()), name
+
+
+def mode_goldens(earth, cam):
+    """The three 64x64 mode goldens on the card. earth_jfa is held to its
+    golden. earth_sibson and earth_logpolar are stale: the reference's own
+    frames miss them (sibson max 0.118; log-polar masks 1,235 pixels, the
+    golden 4,095), so the card's frames are held to the port's CPU
+    frames, which the CPU tests hold to the jitted reference."""
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.render import pipeline
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cam_cpu = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                            device="cpu")
+    earth_cpu = earth.to("cpu")
+    for name in ("earth_jfa", "earth_sibson", "earth_logpolar"):
+        ref = np.load(os.path.join(root, "tests", "golden", f"{name}.npz"))
+        spec = json.loads(str(ref["spec"]))
+        kw = dict(width=64, height=64, reconstruction="atrous", max_depth=3,
+                  diffuse_max_depth=1, ray_budget_frac=0.6)
+        kw.update({k: v for k, v in spec.items() if k != "scene"})
+        cfg = RenderConfig(**kw)
+        frames = []
+        for sc, cm in ((earth, cam), (earth_cpu, cam_cpu)):
+            st = pipeline.FrameState.initial(cm, cfg)
+            for _ in range(2):
+                out, st = pipeline.render_frame(sc, cm, (32, 32), st, cfg)
+            frames.append((out["image"].cpu().numpy(), int(out["ray_count"])))
+        (img, rc), (cpu_img, cpu_rc) = frames
+        golden = ref["image"].astype(np.float32)
+        want, want_rc, against = (golden, int(ref["ray_count"]), "golden") \
+            if name == "earth_jfa" else (cpu_img, cpu_rc, "CPU port frame")
+        err = np.abs(img - want)
+        gerr = np.abs(img - golden)
+        print(f"[modes golden] {name}: vs the {against} ray_count {rc} / "
+              f"{want_rc}, MAE {err.mean():.3e}, max {err.max():.3e}, pixels "
+              f"> 0.1: {int((err.max(-1) > 0.1).sum())}; vs the golden "
+              f"ray_count {rc} / {int(ref['ray_count'])}, MAE "
+              f"{gerr.mean():.3e}, max {gerr.max():.3e}")
+        assert rc == want_rc, name
+        assert err.mean() < 5e-3 and err.max() < 0.1, name
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1081,6 +1326,37 @@ def main() -> int:
                                               "occlusion_stream")})
     launches.update(micro_inner=0, smem_dma=0)   # no render path runs them
 
+    # ---- the main paths' backward pass (bench.py's default fwd+bwd) -------
+    ph.start("main earth fwd+bwd")
+    g_e, step_e, st_e, per_e, peak_e = fwd_bwd("main earth fwd+bwd", earth,
+                                               cam, cfg_e, card, steps=3)
+    assert per_e["closest_hit"] > 0 and per_e["occlusion"] > 0, per_e
+    fwd_bwd_profile("main earth fwd+bwd", earth, cam, cfg_e, st_e, step_e,
+                    card)
+    ph.start("main earth fwd+bwd remat")
+    remat = cfg_e.replace(remat_shade=True)
+    g_r, step_r, _, per_r, peak_r = fwd_bwd("main earth fwd+bwd remat",
+                                            earth, cam, remat, card, steps=2)
+    # the backward runs every shade bounce again, its kernels included
+    for k in ("closest_hit", "occlusion"):
+        assert per_r[k] == per_e[k] + cfg_e.max_depth, (k, per_r, per_e)
+    worst = max(float(((g_r[k] - g_e[k]).abs()
+                       / g_e[k].abs().clamp_min(1e-30)).max()) for k in g_e)
+    print(f"[main earth fwd+bwd remat] peak memory {peak_r:.2f} GiB with "
+          f"remat_shade vs {peak_e:.2f} GiB without; {step_r:.2f} vs "
+          f"{step_e:.2f} ms/step; gradients' largest relative difference "
+          f"{worst:.3e}  [{card}]")
+    for k in g_e:   # rtol 1e-4; the floor only for components near 0
+        torch.testing.assert_close(g_r[k], g_e[k], rtol=1e-4,
+                                   atol=1e-6 * float(g_e[k].abs().max()))
+    ph.start("main city fwd+bwd")
+    _, step_c, st_c, per_c, _ = fwd_bwd("main city fwd+bwd", city, cam,
+                                        cfg_c, card, steps=2)
+    assert per_c["closest_hit_stream"] > 0 and per_c["occlusion_stream"] > 0
+    assert per_c["closest_hit"] == 0 and per_c["occlusion"] == 0
+    fwd_bwd_profile("main city fwd+bwd", city, cam, cfg_c, st_c, step_c,
+                    card)
+
     ph.start("profile")
     frame_profile("earth", earth, cam, cfg_e, steady_e, card)
     frame_profile("city", city, cam, cfg_c, steady_c, card)
@@ -1147,6 +1423,13 @@ def main() -> int:
           f"max {gmax:.3e}")
     assert int(go["ray_count"]) == int(ref["ray_count"])
     assert gmae < 5e-3 and gmax < 0.1
+    ph.start("grad parity")
+    golden_grad_parity(earth, cam)
+
+    # ---- the other sampling modes and reconstructions ------------------------
+    ph.start("modes")
+    modes(earth, cam, card)
+    mode_goldens(earth, cam)
     ph.end()
 
     print(json.dumps({"kernels": [

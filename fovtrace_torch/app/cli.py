@@ -8,9 +8,11 @@ city, earth, multi, vokselia); city, the 170k-triangle scene, takes the
 streaming kernels.
 
 Renders a gaze trajectory through `render.pipeline.render_frame` and
-prints steady-state ms/frame and ray throughput. Options the port does
-not run yet (the weier/author/logpolar samplers, JFA/Sibson
-reconstruction) are refused with a message, never substituted.
+prints steady-state ms/frame and ray throughput. Every sampling mode
+(`--sampling`, also spelt `--sampling-mode`) and reconstruction of the
+reference runs, and `--view saliency` writes the saliency heat map.
+What the port does not run yet (.obj / .json / asset-directory scenes)
+is refused with a message, never substituted.
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ import torch
 from fovtrace_torch.config import RECONSTRUCTIONS, SAMPLING_MODES
 from fovtrace_torch.scene import procedural
 
+# --view -> output key; a view whose buffer the frame did not produce
+# (jfa under atrous, say) shows the image, as in the reference
 _VIEWS = {"image": "image", "depth": "depth", "albedo": "albedo",
-          "weight": "weight", "shading": "shading", "saliency": "saliency",
-          "mask": "mask", "pullpush": "pullpush", "atrous": "atrous"}
+          "weight": "weight", "shading": "shading",
+          "saliency": "saliency_view", "mask": "mask", "jfa": "jfa",
+          "sibson": "sibson", "pullpush": "pullpush", "atrous": "atrous"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -37,7 +42,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:1, cpu)")
     p.add_argument("--scene", default="earth",
-                   choices=sorted(procedural.SCENES))
+                   help=f"one of {sorted(procedural.SCENES)} (.obj, .json "
+                        f"and asset-directory scenes are not ported)")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--frames", type=int, default=16)
@@ -45,10 +51,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="fixed | circle | lissajous | path/to/trajectory.csv")
     p.add_argument("--view", default="image", choices=sorted(_VIEWS))
     p.add_argument("--reconstruction", default="atrous",
-                   choices=["jfa", "sibson", "pullpush", "atrous", "all",
-                            "none"])
-    p.add_argument("--sampling", default="masked",
-                   choices=["masked", "weier", "author", "logpolar", "full"])
+                   choices=RECONSTRUCTIONS)
+    p.add_argument("--sampling", "--sampling-mode", default="masked",
+                   choices=SAMPLING_MODES)
     p.add_argument("--intersect-backend", default="auto",
                    choices=["auto", "cluster", "brute"])
     p.add_argument("--aperture", type=float, default=0.07)
@@ -75,14 +80,11 @@ def build_argparser() -> argparse.ArgumentParser:
 def make_config(args):
     from fovtrace_torch.config import RenderConfig
 
+    if args.scene not in procedural.SCENES:
+        raise SystemExit(f"--scene {args.scene}: scene files and asset "
+                         f"directories are not ported to fovtrace_torch yet; "
+                         f"use one of {sorted(procedural.SCENES)}")
     sampling = "full" if args.no_optimize else args.sampling
-    if sampling not in SAMPLING_MODES:
-        raise SystemExit(f"--sampling {sampling} is not ported to "
-                         f"fovtrace_torch yet; use one of {SAMPLING_MODES}")
-    if args.reconstruction not in RECONSTRUCTIONS:
-        raise SystemExit(f"--reconstruction {args.reconstruction} is not "
-                         f"ported to fovtrace_torch yet; use one of "
-                         f"{RECONSTRUCTIONS}")
     return RenderConfig(
         width=args.width, height=args.height, aperture=args.aperture,
         sampling_mode=sampling, diffuse_max_depth=args.gi_depth,

@@ -16,23 +16,24 @@ import dataclasses
 
 import torch
 
-SAMPLING_MODES = ("masked", "full")
-RECONSTRUCTIONS = ("pullpush", "atrous", "none")
+SAMPLING_MODES = ("masked", "weier", "author", "logpolar", "full")
+RECONSTRUCTIONS = ("jfa", "sibson", "pullpush", "atrous", "all", "none")
 INTERSECT_BACKENDS = ("auto", "cluster", "brute")
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render parameters; defaults match `fovtrace.RenderConfig`.
-    Fields that only unported paths read (the Weier falloff's p_min,
-    samples_per_pixel, sharded budgets, remat, JFA/Sibson) are left out."""
+    Fields that only unported paths read (samples_per_pixel, sharded
+    budgets) are left out."""
 
     width: int = 1024
     height: int = 1024
 
     # --- foveation ---
     aperture: float = 0.07
-    sampling_mode: str = "masked"   # "masked" | "full"
+    p_min: float = 0.05             # peripheral floor of the Weier falloff
+    sampling_mode: str = "masked"   # one of SAMPLING_MODES
     saliency_block: int = 4
     extra_sample_rate: int = 8
 
@@ -57,13 +58,19 @@ class RenderConfig:
     cache_epsilon: float = 1e-3
 
     # --- reconstruction ---
-    reconstruction: str = "pullpush"  # "pullpush" | "atrous" | "none"
+    reconstruction: str = "pullpush"  # one of RECONSTRUCTIONS
     atrous_iterations: int = 1
     atrous_c_phi: float = 1.0
     atrous_n_phi: float = 0.5
     atrous_p_phi: float = 0.5
+    sibson_max_radius: int = 16     # bound on the Sibson disc, pixels
 
     intersect_backend: str = "auto"   # "auto" | "cluster" | "brute"
+
+    # recompute each shade bounce in the backward pass instead of keeping
+    # its intermediates (torch.utils.checkpoint): less memory, a second
+    # forward evaluation of every bounce, cluster kernels included
+    remat_shade: bool = False
 
     # the view-switchboard output dict (position/normal/mask/...);
     # False returns only the image and the counters

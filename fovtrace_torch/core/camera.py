@@ -22,6 +22,67 @@ PM_ORTHO_WIDTH = "ortho_width"
 PM_ORTHO_HEIGHT = "ortho_height"
 
 
+def _lu_host(m: torch.Tensor):
+    """LAPACK sgetrf of a 4x4 on the host: (lu, perm) with m[perm] = L U.
+    Each call is a host round trip, counted as kernels.CALLS["inv4_host"]
+    (on a CUDA tensor it waits for the device)."""
+    from scipy.linalg import lapack
+
+    from fovtrace_torch import kernels
+
+    kernels.CALLS["inv4_host"] += 1
+    lu, piv, info = lapack.sgetrf(m.detach().cpu().numpy().astype(np.float32))
+    if info != 0:
+        raise ValueError(f"singular camera matrix (sgetrf info {info})")
+    perm = np.arange(4)
+    for i, p in enumerate(piv):
+        perm[i], perm[p] = perm[p], perm[i]
+    return lu, perm
+
+
+def _lu_inverse(lu, perm) -> np.ndarray:
+    """A^-1 from A's factors: two BLAS strsm solves of the permuted
+    identity."""
+    from scipy.linalg import blas
+
+    y = blas.strsm(1.0, lu, np.eye(4, dtype=np.float32)[perm], side=0,
+                   lower=1, diag=1)
+    return blas.strsm(1.0, lu, y, side=0, lower=0, diag=0)
+
+
+class _Inv4(torch.autograd.Function):
+    """A^-1 with the reference's adjoint: A_bar = -solve(A^T, X_bar) X^T,
+    the transposed solve run on A's LU factors. Forming the adjoint with
+    an explicit inverse instead moves the eye gradient past the goldens'
+    tolerance (the matrix is ill-conditioned)."""
+
+    @staticmethod
+    def forward(ctx, m):
+        lu, perm = _lu_host(m)
+        x = torch.as_tensor(_lu_inverse(lu, perm), device=m.device)
+        ctx.save_for_backward(x)
+        ctx.lu = (lu, perm)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        from scipy.linalg import blas
+
+        from fovtrace_torch import kernels
+
+        (x,) = ctx.saved_tensors
+        lu, perm = ctx.lu
+        kernels.CALLS["inv4_host"] += 1
+        gh = g.detach().cpu().numpy().astype(np.float32)
+        # A^T = U^T L^T P^T: solve with U^T, then with the unit L^T, then
+        # undo the row permutation
+        z = blas.strsm(1.0, lu, gh, side=0, lower=0, trans_a=1, diag=0)
+        w = blas.strsm(1.0, lu, z, side=0, lower=1, trans_a=1, diag=1)
+        y = np.empty_like(w)
+        y[perm] = w
+        return -(torch.as_tensor(y, device=g.device) @ x.T)
+
+
 def inv4(m: torch.Tensor) -> torch.Tensor:
     """Inverse of a 4x4 float32 matrix, rounded as the reference rounds it.
 
@@ -29,25 +90,11 @@ def inv4(m: torch.Tensor) -> torch.Tensor:
     inverses from different LU codes differ by ~1e-5 relative, which
     moves primary-ray hit points by ~1e-4. The reference inverts with
     LAPACK sgetrf and two BLAS strsm solves on the host; this does the
-    same through scipy (a 4x4 round trip to the host). When `m` requires
-    grad, the gradient comes from torch.linalg.inv."""
-    from scipy.linalg import blas, lapack
-
-    a = m.detach().cpu().numpy().astype(np.float32)
-    lu, piv, info = lapack.sgetrf(a)
-    if info != 0:
-        raise ValueError(f"singular camera matrix (sgetrf info {info})")
-    perm = np.arange(4)
-    for i, p in enumerate(piv):
-        perm[i], perm[p] = perm[p], perm[i]
-    y = blas.strsm(1.0, lu, np.eye(4, dtype=np.float32)[perm], side=0,
-                   lower=1, diag=1)
-    x = torch.as_tensor(blas.strsm(1.0, lu, y, side=0, lower=0, diag=0),
-                        device=m.device)
+    same through scipy, a 4x4 round trip to the host, and a second one in
+    the backward pass when `m` requires grad (_Inv4)."""
     if m.requires_grad:
-        t = torch.linalg.inv(m)
-        x = x + (t - t.detach())
-    return x
+        return _Inv4.apply(m)
+    return torch.as_tensor(_lu_inverse(*_lu_host(m)), device=m.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +237,6 @@ class Camera:
         denom = torch.clamp_min(vecm.dot(dirs, viewv), 1e-6)
         focus_pt = eye + dirs * (focus_dist / denom)
         ang = 2.0 * math.pi * u1
-        rad = lens_radius * torch.sqrt(u2)
+        rad = lens_radius * mathx.sqrt_rn(u2)
         lens = eye + rightv * (torch.cos(ang) * rad) + upv * (torch.sin(ang) * rad)
         return lens, vecm.normalize(focus_pt - lens)

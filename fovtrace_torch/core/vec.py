@@ -13,6 +13,9 @@ from typing import NamedTuple
 
 import torch
 
+from fovtrace_torch.core import mathx
+from fovtrace_torch.core.mathx import sqrt_rn
+
 
 class Vec3(NamedTuple):
     x: torch.Tensor
@@ -92,24 +95,36 @@ def full(shape, value, device) -> Vec3:
 
 
 # ------------------------------------------------------------------ algebra
+# The reference's compiled code contracts a product that feeds an add or
+# a subtract into one fused multiply-add (XLA's CPU backend fuses the
+# first operand's product when both are products); `dot`, `cross` and
+# `fma` round as it does.
+def fma(a: Vec3, b, c) -> Vec3:
+    """Componentwise a * b + c with one rounding; b and c may be tensors."""
+    b3 = b if isinstance(b, Vec3) else Vec3(b, b, b)
+    c3 = c if isinstance(c, Vec3) else Vec3(c, c, c)
+    return Vec3(mathx.fma(a.x, b3.x, c3.x), mathx.fma(a.y, b3.y, c3.y),
+                mathx.fma(a.z, b3.z, c3.z))
+
+
 def dot(a: Vec3, b: Vec3) -> torch.Tensor:
-    return a.x * b.x + a.y * b.y + a.z * b.z
+    return mathx.fma(a.z, b.z, mathx.fma(a.x, b.x, a.y * b.y))
 
 
 def cross(a: Vec3, b: Vec3) -> Vec3:
     return Vec3(
-        a.y * b.z - a.z * b.y,
-        a.z * b.x - a.x * b.z,
-        a.x * b.y - a.y * b.x,
+        mathx.fma(a.y, b.z, -(a.z * b.y)),
+        mathx.fma(a.z, b.x, -(a.x * b.z)),
+        mathx.fma(a.x, b.y, -(a.y * b.x)),
     )
 
 
 def length(v: Vec3, eps: float = 0.0) -> torch.Tensor:
-    return torch.sqrt(dot(v, v) + eps)
+    return sqrt_rn(dot(v, v) + eps)
 
 
 def norm(v: Vec3, eps: float = 1e-20) -> torch.Tensor:
-    return torch.sqrt(torch.clamp_min(dot(v, v), eps))
+    return sqrt_rn(torch.clamp_min(dot(v, v), eps))
 
 
 def normalize(v: Vec3, eps: float = 1e-20) -> Vec3:
@@ -138,7 +153,7 @@ def max3(v: Vec3) -> torch.Tensor:
 
 # ------------------------------------------------------------- shading math
 def reflect(i: Vec3, n: Vec3) -> Vec3:
-    return i - n * (2.0 * dot(i, n))
+    return fma(-n, 2.0 * dot(i, n), i)
 
 
 def faceforward(n: Vec3, i: Vec3, nref: Vec3) -> Vec3:
@@ -154,10 +169,10 @@ def refract(i: Vec3, n: Vec3, eta_ratio: torch.Tensor):
     nn = where(entering, n, -n)
     eta = torch.where(entering, 1.0 / eta_ratio, eta_ratio)
     ci = cosi.abs()
-    k = 1.0 - eta * eta * (1.0 - ci * ci)
+    k = mathx.fma(-(eta * eta), mathx.fma(-ci, ci, 1.0), 1.0)
     tir = k <= 0.0
     k_safe = torch.where(tir, 1.0, k)
-    t = i * eta + nn * (eta * ci - torch.sqrt(k_safe))
+    t = fma(i, eta, nn * mathx.fma(eta, ci, -sqrt_rn(k_safe)))
     return where(tir, 0.0, normalize(t)), tir
 
 
@@ -166,7 +181,7 @@ def schlick_rgb(cos_theta: torch.Tensor, reflectivity_n: Vec3) -> Vec3:
     c = torch.clamp(1.0 - cos_theta, 0.0, 1.0)
     c5 = c * c
     c5 = c5 * c5 * c
-    return reflectivity_n + (1.0 - reflectivity_n) * c5
+    return fma(1.0 - reflectivity_n, c5, reflectivity_n)
 
 
 def onb(n: Vec3):
@@ -174,27 +189,32 @@ def onb(n: Vec3):
     s = torch.where(n.z >= 0.0, 1.0, -1.0)
     a = -1.0 / (s + n.z)
     b = n.x * n.y * a
-    t = Vec3(1.0 + s * n.x * n.x * a, s * b, -s * n.x)
-    bt = Vec3(b, s + n.y * n.y * a, -n.y)
+    t = Vec3(mathx.fma(s * n.x * n.x, a, 1.0), s * b, -s * n.x)
+    bt = Vec3(b, mathx.fma(n.y * n.y, a, s), -n.y)
     return t, bt
 
 
 def to_world(lx, ly, lz, n: Vec3) -> Vec3:
     """Local (+Z = n) direction components -> world."""
     t, b = onb(n)
-    return t * lx + b * ly + n * lz
+    return fma(n, lz, fma(t, lx, b * ly))
 
 
 def cosine_sample_hemisphere(z1, z2):
     """Local-frame cosine-weighted hemisphere sample (x, y, z)."""
-    r = torch.sqrt(z1)
+    r = sqrt_rn(z1)
     phi = (2.0 * math.pi) * z2
-    return r * torch.cos(phi), r * torch.sin(phi), torch.sqrt(
+    return r * torch.cos(phi), r * torch.sin(phi), sqrt_rn(
         torch.clamp_min(1.0 - z1, 0.0))
 
 
 def luminance(v: Vec3) -> torch.Tensor:
-    return 0.30 * v.x + 0.59 * v.y + 0.11 * v.z
+    return mathx.fma(0.11, v.z, mathx.fma(0.30, v.x, 0.59 * v.y))
+
+
+def mean_reduce(v: Vec3) -> torch.Tensor:
+    """Scalar mean over all components and elements (the bench's loss)."""
+    return (torch.mean(v.x) + torch.mean(v.y) + torch.mean(v.z)) / 3.0
 
 
 def matvec(m: torch.Tensor, v: Vec3, w=None):

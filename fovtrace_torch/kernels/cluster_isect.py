@@ -201,7 +201,10 @@ def pack_raysT(ro: Vec3, rd: Vec3, t_min, t_max):
     dev = ro.x.device
     f = lambda a: torch.as_tensor(a, dtype=torch.float32,
                                   device=dev).expand(n)
-    w = vec.cross(ro, rd)
+    # o x d without fused multiply-adds (vec.cross contracts them), as
+    # the reference's pack_raysT rounds it when it runs op by op
+    w = Vec3(ro.y * rd.z - ro.z * rd.y, ro.z * rd.x - ro.x * rd.z,
+             ro.x * rd.y - ro.y * rd.x)
     eps = 1e-12
     inv = lambda d: 1.0 / torch.where(d.abs() < eps,
                                       torch.where(d < 0, -eps, eps), d)

@@ -20,7 +20,7 @@ import dataclasses
 import torch
 
 from fovtrace_torch import kernels
-from fovtrace_torch.core import vec
+from fovtrace_torch.core import mathx, vec
 from fovtrace_torch.core.vec import Vec3
 
 BIG_T = 1e30
@@ -241,13 +241,16 @@ def _surface(scene, ro: Vec3, rd: Vec3, hit: Hit, at: torch.Tensor):
     gv = lambda r: Vec3(at[r], at[r + 1], at[r + 2])
     w = 1.0 - hit.u - hit.v
     n0, n1, n2 = gv(0), gv(3), gv(6)
-    n_sh = vec.normalize(n0 * w + n1 * hit.u + n2 * hit.v)
-    u_tex = at[12] * w + at[14] * hit.u + at[16] * hit.v
-    v_tex = at[13] * w + at[15] * hit.u + at[17] * hit.v
+    # barycentric sums and the hit point, contracted as the reference's
+    # compiled code contracts them (vec.fma)
+    n_sh = vec.normalize(vec.fma(n2, hit.v, vec.fma(n0, w, n1 * hit.u)))
+    bary = lambda r: mathx.fma(at[r + 4], hit.v,
+                               mathx.fma(at[r], w, at[r + 2] * hit.u))
+    u_tex, v_tex = bary(12), bary(13)
     valid = hit.valid
     mat_id = torch.where(valid, at[18].to(torch.int32), -1)
     t_safe = torch.where(valid, hit.t, 0.0)
-    point = ro + rd * t_safe
+    point = vec.fma(rd, t_safe, ro)
 
     safe_mat = mat_id.clamp_min(0)
     kd, tex_id_f = material_lookup_v(scene.materials, safe_mat,

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fovtrace_torch.core import mathx
+
 _SOBEL_GX = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _SOBEL_GY = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
 # sqrt(2 pi) rounded in float32, as the reference computes it
@@ -114,13 +116,13 @@ def compute_saliency(gbuf, gaze_px, bbox_diag, block: int = 4):
     nrm = gbuf["normal"]
     ngray_c = corner((nrm.x + nrm.y + nrm.z) * _SIXTH + 0.5)
     ngx, ngy = sobel(ngray_c, scale=corner_scale)
-    s_normal_grad = torch.sqrt(ngx ** 2 + ngy ** 2)
+    s_normal_grad = mathx.sqrt_rn(ngx ** 2 + ngy ** 2)
 
     # velocity from the reprojection offset is per pixel
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
     py = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
     qu, qv = gbuf["reproject_u"], gbuf["reproject_v"]
-    vel = 0.5 * torch.sqrt((px - qu) ** 2 + (py - qv) ** 2)
+    vel = 0.5 * mathx.sqrt_rn((px - qu) ** 2 + (py - qv) ** 2)
     vel = torch.where((qu < 0.0) & (qv < 0.0), 0.0, vel)
     s_velocity = velocity_map(vel)
 

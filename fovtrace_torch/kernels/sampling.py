@@ -1,5 +1,5 @@
-"""Foveated sample mask and stream compaction (counterpart of
-`fovtrace/kernels/sampling.py`, the parts the masked path uses).
+"""Foveated sample masks and stream compaction (counterpart of
+`fovtrace/kernels/sampling.py`).
 
 Compaction is a stable cumsum scatter into a static budget. Indices that
 fall outside the budget go to one extra sink slot, which is sliced off
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fovtrace_torch.core import mathx
 
 # 4x4 dither masks, 1 = sample
 MASK_25 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [1, 1, 1, 1], [1, 1, 1, 1]],
@@ -25,9 +27,45 @@ def gaze_distance(height: int, width: int, gaze_px, device) -> torch.Tensor:
     gy, gx = gaze_px
     py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
     px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
-    d = torch.sqrt((px - gx) ** 2 + (py - gy) ** 2)
+    d = mathx.sqrt_rn((px - gx) ** 2 + (py - gy) ** 2)
     return d / float(np.sqrt(np.float32(float(width) ** 2
                                         + float(height) ** 2)))
+
+
+def weier_sample_rate(gaze_dist, aperture: float, p_min: float = 0.05):
+    """Weier et al.'s linear falloff: 1 inside r0, p_min beyond 2 r0."""
+    r0 = aperture
+    r1 = aperture * 2.0
+    ramp = 1.0 - (1.0 - p_min) * ((gaze_dist - r0) / (r1 - r0))
+    return torch.where(gaze_dist < r0, 1.0,
+                       torch.where(gaze_dist > r1, p_min, ramp))
+
+
+def author_sample_rate(gaze_dist, aperture: float):
+    """The author's rational falloff."""
+    alpha = ((1.0 / 0.8) - 1.0) / (aperture ** 2)
+    return torch.clamp(1.0 / (alpha * (2.0 * gaze_dist) ** 2 + 1.0), 0.0,
+                       1.0)
+
+
+def logpolar_sampling(height: int, width: int, gaze_px, device,
+                      kernel_scale: float = 0.25):
+    """[H,W] bool: a pixel is sampled iff it comes back to within
+    sqrt(1.5 sqrt 2) px through the quarter-size log-polar buffer, its
+    (u, v) rounded to that buffer's texels on the way."""
+    from fovtrace_torch.kernels import logpolar
+
+    gy, gx = gaze_px
+    kh = int(height * kernel_scale)
+    kw = int(width * kernel_scale)
+    py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
+    py, px = py.expand(height, width), px.expand(height, width)
+    u, v = logpolar.forward_coords(px, py, gx, gy, kw, kh)
+    x2, y2 = logpolar.inverse_coords(torch.round(u), torch.round(v), gx, gy,
+                                     kw, kh)
+    d = mathx.sqrt_rn((px - x2) ** 2 + (py - y2) ** 2)
+    return d < float(np.sqrt(np.sqrt(np.float32(2.0)) * np.float32(1.5)))
 
 
 def masked_sampling(height: int, width: int, gaze_dist, saliency,
@@ -111,12 +149,44 @@ def direction_octant(d) -> torch.Tensor:
             + (d.z < 0.0).to(torch.int64))
 
 
-def expand_by_rank(rows, rank, gate):
+class _ExpandByRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, rank, gate, idx, active):
+        ctx.save_for_backward(idx, active)
+        return rows[rank] * gate.to(rows.dtype)[:, None]
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, active = ctx.saved_tensors
+        # slot j's cotangent is that of the one lane it landed on
+        return ct[idx] * active.to(ct.dtype)[:, None], None, None, None, None
+
+
+class _CompactGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, idx, rank, gate):
+        ctx.save_for_backward(rank, gate)
+        return rows[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        rank, gate = ctx.saved_tensors
+        return ct[rank] * gate.to(ct.dtype)[:, None], None, None, None
+
+
+def expand_by_rank(rows, rank, gate, idx, active):
     """Compacted rows [B, C] back to source lanes [N, C]:
-    out[p] = rows[rank[p]] * gate[p]."""
-    return rows[rank] * gate.to(rows.dtype)[:, None]
+    out[p] = rows[rank[p]] * gate[p].
+
+    (rank, gate) and (idx, active) are the two directions of one stable
+    compaction (compact_mask_rank), so the adjoint is the inverse gather
+    rows_bar[j] = ct[idx[j]] * active[j], not autograd's scatter-add of
+    N rows into B (every dropped lane would add into row 0)."""
+    return _ExpandByRank.apply(rows, rank, gate, idx, active)
 
 
-def compact_gather(rows, idx):
-    """Source rows [N, C] into compacted slots [B, C]: out[j] = rows[idx[j]]."""
-    return rows[idx]
+def compact_gather(rows, idx, rank, gate):
+    """Source rows [N, C] into compacted slots [B, C]: out[j] = rows[idx[j]].
+    The adjoint is the inverse gather rows_bar[p] = ct[rank[p]] * gate[p];
+    slots past the compacted count (which read row 0) send nothing back."""
+    return _CompactGather.apply(rows, idx, rank, gate)

@@ -6,7 +6,8 @@
                ray budget
   shade        wavefront path trace of the compacted rays + temporal
                accumulation                            (render.shade)
-  reconstruct  pull-push hole filling, then A-Trous
+  reconstruct  JFA Voronoi fill and Sibson, or pull-push hole filling
+               then A-Trous
 
 Frame-to-frame state is an explicit `FrameState`. Counters come back as
 device tensors; nothing in a frame waits for the device.
@@ -24,7 +25,8 @@ from fovtrace_torch.core import color as colorx
 from fovtrace_torch.core import mathx, reproject, rng, vec
 from fovtrace_torch.core.camera import Camera
 from fovtrace_torch.core.vec import Vec3
-from fovtrace_torch.kernels import atrous, pullpush, saliency, sampling
+from fovtrace_torch.kernels import (atrous, jfa, pullpush, saliency,
+                                    sampling, sibson)
 from fovtrace_torch.render import gbuffer as gbuffer_mod
 from fovtrace_torch.render import shade as shade_mod
 
@@ -45,6 +47,18 @@ class FrameState:
                    prev_camera=camera,
                    frame=torch.zeros((), dtype=torch.int64, device=dev))
 
+    def detach(self) -> "FrameState":
+        """The same state cut from any autograd graph."""
+        cam = self.prev_camera
+        return FrameState(
+            history=self.history.detach(),
+            depth_cache=self.depth_cache.detach(),
+            prev_camera=cam.replace(**{
+                f.name: getattr(cam, f.name).detach()
+                for f in dataclasses.fields(cam)
+                if isinstance(getattr(cam, f.name), torch.Tensor)}),
+            frame=self.frame)
+
 
 def stage_gbuffer(scene, camera, prev_camera, config: RenderConfig):
     return gbuffer_mod.trace_gbuffer(scene, camera, prev_camera, config.width,
@@ -63,13 +77,27 @@ def stage_sampling(scene, gbuf, gaze_px, state: FrameState,
     if not config.temporal:
         is_valid = torch.zeros_like(is_valid)
     d = scene.bbox_max - scene.bbox_min
-    bbox_diag = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    bbox_diag = mathx.sqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     sal = saliency.compute_saliency(gbuf, gaze_px, bbox_diag,
                                     config.saliency_block)
-    if config.sampling_mode == "full":
-        mask = torch.ones((h, w), dtype=torch.bool, device=sal.device)
+    dev = sal.device
+    gdist = sampling.gaze_distance(h, w, gaze_px, dev)
+    mode = config.sampling_mode
+    if mode == "full":
+        mask = torch.ones((h, w), dtype=torch.bool, device=dev)
+    elif mode in ("weier", "author"):
+        # stochastic falloffs: one uniform draw per pixel and frame
+        if mode == "weier":
+            rate = sampling.weier_sample_rate(gdist, config.aperture,
+                                              config.p_min)
+        else:
+            rate = sampling.author_sample_rate(gdist, config.aperture)
+        pix = torch.arange(h * w, dtype=torch.int64, device=dev)
+        mask = rng.rnd(rng.pixel_seed(pix.reshape(h, w), state.frame))[0] \
+            < rate
+    elif mode == "logpolar":
+        mask = sampling.logpolar_sampling(h, w, gaze_px, dev)
     else:  # "masked"
-        gdist = sampling.gaze_distance(h, w, gaze_px, sal.device)
         mask = sampling.masked_sampling(h, w, gdist, sal, config.aperture,
                                         config.extra_sample_rate)
     p = gbuf["position"]
@@ -139,8 +167,8 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
     act = active.to(torch.float32)
     rows5 = torch.stack([tm.x * act, tm.y * act, tm.z * act, act, act],
                         dim=-1)                            # [B, 5]
-    acc = sampling.expand_by_rank(rows5, rank.reshape(-1),
-                                  gate.reshape(-1)).T      # [5, H*W]
+    acc = sampling.expand_by_rank(rows5, rank.reshape(-1), gate.reshape(-1),
+                                  idx, active).T           # [5, H*W]
     history = c_history + acc[:4].reshape(4, h, w)
     traced_mask = acc[4].reshape(h, w)
     cnt = history[3]
@@ -153,25 +181,41 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
 
 def stage_reconstruct(shading_rgb: Vec3, shading_alpha, gbuf,
                       config: RenderConfig):
-    """Pull-push then A-Trous (or either alone, or none). Returns
-    (image rgb, image alpha, extras for the full outputs)."""
+    """JFA and Sibson, or pull-push then A-Trous, or all four (the image
+    is then A-Trous'), or none. Returns (image rgb, image alpha, extras
+    for the full outputs)."""
     recon = config.reconstruction
     extras: Dict[str, torch.Tensor] = {}
     if recon == "none":
         return shading_rgb, shading_alpha, extras
-    pp_rgb, pp_a = pullpush.pull_push_v(shading_rgb, shading_alpha)
-    if config.full_outputs:
-        extras["pullpush"] = torch.cat([vec.to_rows(pp_rgb), pp_a[..., None]],
-                                       dim=-1)
-    if recon == "pullpush":
-        return pp_rgb, pp_a, extras
-    at = atrous.atrous_denoise_v(pp_rgb, gbuf["position"], gbuf["normal"],
-                                 config.atrous_iterations, config.atrous_c_phi,
-                                 config.atrous_n_phi, config.atrous_p_phi)
-    if config.full_outputs:
-        extras["atrous"] = torch.cat([vec.to_rows(at), pp_a[..., None]],
-                                     dim=-1)
-    return at, pp_a, extras
+    out_rgb, out_a = shading_rgb, shading_alpha
+    if recon in ("jfa", "sibson", "all"):
+        sh_rows = torch.cat([vec.to_rows(shading_rgb),
+                             shading_alpha[..., None]], dim=-1)
+        coord, jfa_color = jfa.jump_flood(sh_rows)
+        extras["jfa"] = jfa_color
+        out_rgb, out_a = vec.from_rows(jfa_color[..., :3]), jfa_color[..., 3]
+        if recon in ("sibson", "all"):
+            sib = sibson.sibson_interpolate(coord, jfa_color,
+                                            config.sibson_max_radius)
+            extras["sibson"] = sib
+            out_rgb, out_a = vec.from_rows(sib[..., :3]), sib[..., 3]
+    if recon in ("pullpush", "atrous", "all"):
+        pp_rgb, pp_a = pullpush.pull_push_v(shading_rgb, shading_alpha)
+        if config.full_outputs:
+            extras["pullpush"] = torch.cat([vec.to_rows(pp_rgb),
+                                            pp_a[..., None]], dim=-1)
+        out_rgb, out_a = pp_rgb, pp_a
+        if recon in ("atrous", "all"):
+            at = atrous.atrous_denoise_v(
+                pp_rgb, gbuf["position"], gbuf["normal"],
+                config.atrous_iterations, config.atrous_c_phi,
+                config.atrous_n_phi, config.atrous_p_phi)
+            if config.full_outputs:
+                extras["atrous"] = torch.cat([vec.to_rows(at),
+                                              pp_a[..., None]], dim=-1)
+            out_rgb, out_a = at, pp_a
+    return out_rgb, out_a, extras
 
 
 def render_frame(scene, camera: Camera, gaze_px, state: FrameState,
@@ -218,6 +262,7 @@ def render_frame(scene, camera: Camera, gaze_px, state: FrameState,
             "shading": torch.cat([vec.to_rows(shading_rgb),
                                   shading_alpha[..., None]], dim=-1),
             "saliency": sal,
+            "saliency_view": colorx.heatmap(sal),
             "mask": mask,
             "traced": traced_mask,
         })
@@ -225,6 +270,37 @@ def render_frame(scene, camera: Camera, gaze_px, state: FrameState,
     new_state = FrameState(history=history, depth_cache=gbuf["depth"],
                            prev_camera=camera, frame=state.frame + 1)
     return outputs, new_state
+
+
+GRAD_PARAMS = ("emission", "kd", "eye", "target")
+
+
+def grad_step(scene, camera: Camera, gaze_px, state: FrameState | None,
+              config: RenderConfig):
+    """One forward and backward pass of the bench's loss,
+    vec.mean_reduce(image_rgb), with respect to the light's emission, the
+    materials' kd and the camera's eye and target (GRAD_PARAMS).
+
+    `state` is a constant: it is detached, so repeated steps neither keep
+    nor reach an earlier frame's graph. With state None the frame starts
+    from FrameState.initial of the differentiated camera, as the goldens'
+    gradient fingerprints do. Returns (loss, {name: gradient}, outputs),
+    all detached."""
+    leaf = lambda t: t.detach().clone().requires_grad_(True)
+    emission, kd = leaf(scene.light.emission), leaf(scene.materials.kd)
+    eye, target = leaf(camera.eye), leaf(camera.target)
+    s2 = scene.replace(light=scene.light.replace(emission=emission),
+                       materials=scene.materials.replace(kd=kd))
+    c2 = camera.replace(eye=eye, target=target)
+    st = FrameState.initial(c2, config) if state is None else state.detach()
+    out, _ = render_frame(s2, c2, gaze_px, st, config)
+    loss = vec.mean_reduce(out["image_rgb"])
+    loss.backward()
+    grads = dict(zip(GRAD_PARAMS, (emission.grad, kd.grad, eye.grad,
+                                   target.grad)))
+    out = {k: v.map(torch.Tensor.detach) if isinstance(v, Vec3)
+           else v.detach() for k, v in out.items()}
+    return loss.detach(), grads, out
 
 
 def render_sequence(scene, cameras, gazes, config: RenderConfig,

@@ -12,11 +12,13 @@ give the same paths.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from fovtrace_torch.core import rng, vec
+from fovtrace_torch.core import mathx, rng, vec
 from fovtrace_torch.core.vec import Vec3
 from fovtrace_torch.kernels import intersect as isect
 
@@ -42,8 +44,9 @@ def envmap_lookup_v(envmap: torch.Tensor, dirs: Vec3, scale: float = 2.0
     c10, c11 = flat[y1 * w + x0], flat[y1 * w + x1]
 
     def bilerp(k):
-        return ((c00[:, k] * (1 - wx) + c01[:, k] * wx) * (1 - wy)
-                + (c10[:, k] * (1 - wx) + c11[:, k] * wx) * wy)
+        top = mathx.fma(c00[:, k], 1 - wx, c01[:, k] * wx)
+        bottom = mathx.fma(c10[:, k], 1 - wx, c11[:, k] * wx)
+        return mathx.fma(top, 1 - wy, bottom * wy)
 
     return Vec3(bilerp(0), bilerp(1), bilerp(2)) * scale
 
@@ -56,19 +59,20 @@ def nee_direct_v(scene, point: Vec3, normal: Vec3, kd: Vec3, seeds, config,
     light = scene.light
     z1, seeds = rng.rnd(seeds)
     z2, seeds = rng.rnd(seeds)
-    light_pos = vec.of(light.corner) + vec.of(light.v1) * z1 \
-        + vec.of(light.v2) * z2
+    light_pos = vec.fma(vec.of(light.v2), z2,
+                        vec.fma(vec.of(light.v1), z1, vec.of(light.corner)))
     to_l = light_pos - point
     ldist = vec.length(to_l)
     l = to_l * (1.0 / torch.clamp_min(ldist, 1e-20))
     ln = vec.of(light.normal)
     ndl = vec.dot(normal, l)
-    lndl = ln.x * l.x + ln.y * l.y + ln.z * l.z
+    lndl = vec.dot(ln, l)
     facing = (ndl > 0.0) & (lndl > 0.0)
     # disabled lanes (misses, dead rays) get t_max = -1: culled
     shadow_tmax = torch.where(enabled & facing, ldist - config.scene_epsilon,
                               -1.0)
-    atten = isect.occlusion_v(scene, point + normal * config.scene_epsilon, l,
+    atten = isect.occlusion_v(scene, vec.fma(normal, config.scene_epsilon,
+                                             point), l,
                               config.scene_epsilon, shadow_tmax,
                               backend=config.intersect_backend)
     weight = ndl * lndl * light.area / (math.pi * ldist * ldist)
@@ -80,7 +84,7 @@ def nee_direct_v(scene, point: Vec3, normal: Vec3, kd: Vec3, seeds, config,
     ndh = vec.dot(normal, h)
     spec = torch.where(ndh > 0.0, torch.clamp_min(ndh, 1e-9) ** phong_exp,
                        0.0)
-    phong = phong + ks * lc * spec
+    phong = vec.fma(ks * lc, spec, phong)
     return (vec.where(facing, diffuse, 0.0), vec.where(facing, phong, 0.0),
             seeds)
 
@@ -128,8 +132,8 @@ def _bounce(scene, config, bounce, origin, direction, throughput, seeds,
     cos_theta = torch.where(cos_n < 0.0, -cos_n,
                             vec.dot(t_dir, surf["normal"]))
     c1 = torch.clamp(1.0 - cos_theta, 0.0, 1.0)
-    fres = torch.clamp(fres_min + (fres_max - fres_min) * (c1 ** fres_exp),
-                       0.0, 1.0)
+    fres = torch.clamp(mathx.fma(fres_max - fres_min, c1 ** fres_exp,
+                                 fres_min), 0.0, 1.0)
     fres = torch.where(tir, 1.0, fres)
     exiting = cos_n > 0.0
     beer = vec.where(exiting, vec.exp(extinction * surf["t_safe"]), 1.0)
@@ -144,7 +148,7 @@ def _bounce(scene, config, bounce, origin, direction, throughput, seeds,
     is_refr = live_hit & (kind == MATL_REFRACTION)
     direct = vec.where(is_diff, direct_d, 0.0) + vec.where(is_refl, direct_r,
                                                            0.0)
-    add = add + throughput * direct
+    add = vec.fma(throughput, direct, add)
 
     # continuation ray
     z1, seeds = rng.rnd(seeds)
@@ -164,7 +168,7 @@ def _bounce(scene, config, bounce, origin, direction, throughput, seeds,
     go = diff_go | spec_go
 
     side = torch.where(vec.dot(new_dir, surf["gnormal"]) >= 0.0, 1.0, -1.0)
-    new_origin = point + surf["gnormal"] * (side * config.scene_epsilon)
+    new_origin = vec.fma(surf["gnormal"], side * config.scene_epsilon, point)
     origin = vec.where(go, new_origin, origin)
     direction = vec.where(go, new_dir, direction)
     throughput = vec.where(go, new_thr, throughput)
@@ -194,10 +198,17 @@ def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config):
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     gi_depth = torch.zeros((n,), dtype=torch.int32, device=dev)
 
+    body = _bounce
+    if config.remat_shade:
+        # keep no bounce's intermediates for the backward: it runs the
+        # bounce again (the cluster kernels included). The bounce draws
+        # from its own hash RNG, so there is no torch RNG state to keep.
+        body = functools.partial(checkpoint, _bounce, use_reentrant=False,
+                                 preserve_rng_state=False)
     for bounce in range(config.max_depth):
         (add, origin, direction, throughput, seeds, gi_depth, alive, traced,
-         first) = _bounce(scene, config, bounce, origin, direction,
-                          throughput, seeds, gi_depth, alive)
+         first) = body(scene, config, bounce, origin, direction, throughput,
+                       seeds, gi_depth, alive)
         rays_traced = rays_traced + traced
         result = Vec3(result.x.index_add(0, pix, add.x),
                       result.y.index_add(0, pix, add.y),
@@ -215,13 +226,13 @@ def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config):
             budget = int(n * fracs[min(bounce, len(fracs) - 1)])
             budget = min(max(1024, (budget + 1023) // 1024 * 1024), width)
             if budget < width:
-                idx, active, _, _ = sampling.compact_mask_keyed_rank(
+                idx, active, rankc, gatec = sampling.compact_mask_keyed_rank(
                     alive, sampling.direction_octant(direction), 8, budget)
                 rows = torch.stack([origin.x, origin.y, origin.z,
                                     direction.x, direction.y, direction.z,
                                     throughput.x, throughput.y,
                                     throughput.z], dim=-1)
-                cols = sampling.compact_gather(rows, idx).T
+                cols = sampling.compact_gather(rows, idx, rankc, gatec).T
                 origin = Vec3(cols[0], cols[1], cols[2])
                 direction = Vec3(cols[3], cols[4], cols[5])
                 throughput = Vec3(cols[6], cols[7], cols[8])

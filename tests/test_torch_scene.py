@@ -86,10 +86,15 @@ def test_camera_and_frame_state_from_numpy():
 
 
 def test_config_refuses_unported_modes():
+    # every mode of the reference is ported; anything else is refused
+    for mode in ("masked", "weier", "author", "logpolar", "full"):
+        RenderConfig(sampling_mode=mode)
+    for recon in ("jfa", "sibson", "pullpush", "atrous", "all", "none"):
+        RenderConfig(reconstruction=recon)
     with pytest.raises(ValueError, match="not ported"):
-        RenderConfig(sampling_mode="weier")
+        RenderConfig(sampling_mode="stratified")
     with pytest.raises(ValueError, match="not ported"):
-        RenderConfig(reconstruction="sibson")
+        RenderConfig(reconstruction="bilateral")
 
 
 def test_scene_names_match_reference():
