@@ -85,6 +85,35 @@ non-zero):
                  64x64 mode goldens (earth_jfa against its golden; the
                  stale earth_sibson and earth_logpolar against the port's
                  CPU frames)
+  dist 1-rank    an NCCL process group of one; the bench frame through
+                 dist.sharding.render_sharded (rows in scanline order) and
+                 through render_frame, in turns, 3 circle-gaze frames: the
+                 mask bit for bit, ray_count equal, no ray dropped, image
+                 and history at rtol 2e-4 / atol 2e-5; ms/frame of both,
+                 the sharded frames' launches, the cluster kernels' device
+                 time in a frame of each; one city frame (the streaming
+                 pair on row-major blocks: a hit at equal t may go to the
+                 other triangle, so the image is held to MAE < 5e-3 and
+                 the mask to < 0.1% flipped pixels)
+  dist 2-rank    two processes of this script on the one card in a gloo
+                 group (all-reduce and broadcast of CUDA tensors), earth
+                 at 256x256: two sharded frames and a dense train step,
+                 against this process's one-rank run (masks bit for bit,
+                 frames at the tolerance above, loss and gradients at
+                 rtol 1e-4)
+  train          dist.train's dense and foveated (hard) steps on earth at
+                 1920x1088 (app/optimize's configuration: max_depth 2,
+                 diffuse_max_depth 1, reconstruction none), one warm and
+                 two timed each: ms/step, peak memory, Mrays/s, loss,
+                 gradient norms (finite; nonzero, but gaze_uv's in the
+                 dense step), launches per step, and a torch.profiler
+                 summary of a step (forward and backward device time)
+  optimize       `python -m fovtrace_torch.app.optimize --scene box` with
+                 --ckpt: 60 steps at 128x128 (the loss falls; its exit
+                 code printed), 80 on the same directory (resumes at 60),
+                 40 then 60 on another, whose step-60 parameters equal the
+                 first run's (rtol 1e-6), and tests/test_checkpoint.py's
+                 32x32 8-step run (exit 0)
 Neither probe runs on a render path: their kernels' launches on the main
 paths are 0.
 The line before last is the card's name and power limit, the one before
@@ -93,11 +122,14 @@ it the kernels' JSON line, and the last line is the JSON result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1080,23 +1112,20 @@ def _parents(e):
         p = p.cpu_parent
 
 
-def fwd_bwd_profile(label, scene, cam, cfg, st, steady_ms, card):
-    """torch.profiler over one fwd+bwd step: device kernels, summed device
-    time split into forward and backward (the backward is what runs
-    under autograd's evaluate_function events, a remat recompute
-    included), the device's busy share of the unprofiled step, and the
-    backward functions with the most device time."""
+def fwd_bwd_profile(label, step, steady_ms, card):
+    """torch.profiler over one fwd+bwd step (`step()`): device kernels,
+    summed device time split into forward and backward (the backward is
+    what runs under autograd's evaluate_function events, a remat
+    recompute included), the device's busy share of the unprofiled step,
+    and the backward functions with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from fovtrace_torch.render import pipeline
-
-    gaze = (H // 2, W // 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipeline.grad_step(scene, cam, gaze, st, cfg)
+        step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.key_averages()
@@ -1226,7 +1255,397 @@ def mode_goldens(earth, cam):
         assert err.mean() < 5e-3 and err.max() < 0.1, name
 
 
+# ---- the row-sharded frame, the train step, app/optimize ------------------
+DIST_RES = 256          # the 2-rank checks' frame side
+# tests/test_dist.py's tolerance, sharded frame against the single frame
+DIST_RTOL, DIST_ATOL = 2e-4, 2e-5
+TRAIN_EYE, TRAIN_TARGET = (3.0, 2.5, 4.0), (0.0, 0.6, 0.0)   # optimize's
+CLUSTER_KERNELS = ("closest_kernel", "occlusion_kernel",
+                   "closest_stream_kernel", "occlusion_stream_kernel")
+
+
+def cluster_device_ms(fn) -> dict:
+    """The four cluster kernels' summed device ms in one call of fn."""
+    ms = device_ms(fn)
+    out = {}
+    for k in CLUSTER_KERNELS:
+        # "closest_kernel" is no substring of "closest_stream_kernel"
+        out[k] = sum(v for name, v in ms.items() if k in name)
+    return out
+
+
+def launches_since(before: dict) -> dict:
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    return {k: v - before.get(k, 0) for k, v in ci.counters().items()}
+
+
+def check_frame(label, got, want, got_state, want_state, exact=True):
+    """A sharded frame against render_frame's: the counters, then the
+    mask bit for bit and the image and history at tests/test_dist.py's
+    tolerance (exact), or (not exact: the streaming kernels may pick
+    another of two triangles hit at the same t when the ray blocks
+    differ) the image within the golden frames' tolerance, MAE < 5e-3,
+    and fewer than 0.1% of the mask's pixels flipped. Returns (mask
+    pixels that differ, pixels whose G-buffer normal differs)."""
+    assert int(got["ray_count"]) == int(want["ray_count"]) or not exact, \
+        label
+    assert int(got["rays_dropped"]) == 0 == int(want["rays_dropped"]), label
+    flips = int((got["mask"] != want["mask"]).sum())
+    normals = int((got["normal"] != want["normal"]).any(-1).sum())
+    if exact:
+        assert flips == 0, f"{label}: mask differs"
+        torch.testing.assert_close(got["image"], want["image"],
+                                   rtol=DIST_RTOL, atol=DIST_ATOL,
+                                   msg=f"{label}: image")
+        torch.testing.assert_close(got_state.history, want_state.history,
+                                   rtol=DIST_RTOL, atol=DIST_ATOL,
+                                   msg=f"{label}: history")
+    else:
+        mae = float((got["image"] - want["image"]).abs().mean())
+        assert mae < 5e-3 and flips < 1e-3 * got["mask"].numel(), \
+            (label, mae, flips)
+    return flips, normals
+
+
+def dist_one_rank(label, scene, cam, cfg, mesh, card, frames, exact=True):
+    """`frames` circle-gaze frames through render_sharded on `mesh` and
+    through render_frame, in turns, each ending in a synchronise; then
+    the four cluster kernels' device time in one frame of each (row-major
+    ray blocks against 16x16 tiles). Returns the sharded frames' launch
+    counts."""
+    from fovtrace_torch.app import trajectory
+    from fovtrace_torch.dist import sharding as shd
+    from fovtrace_torch.render import pipeline
+
+    cfg = cfg.replace(full_outputs=True)
+    gazes, _ = trajectory.make("circle", H, W, frames)
+    st1 = pipeline.FrameState.initial(cam, cfg)
+    stn = shd.initial_state_sharded(cam, cfg, mesh)
+    ms1, msn, counts = [], [], {}
+    for f, gaze in enumerate(gazes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o1, st1 = pipeline.render_frame(scene, cam, gaze, st1, cfg)
+        torch.cuda.synchronize()
+        ms1.append((time.perf_counter() - t0) * 1e3)
+        before = launches_since({})
+        t0 = time.perf_counter()
+        on, stn = shd.render_sharded(scene, cam, gaze, stn, cfg, mesh)
+        torch.cuda.synchronize()
+        msn.append((time.perf_counter() - t0) * 1e3)
+        for k, v in launches_since(before).items():
+            counts[k] = counts.get(k, 0) + v
+        flips, normals = check_frame(f"{label} frame {f}", on, o1, stn, st1,
+                                     exact)
+        err = (on["image"] - o1["image"]).abs()
+        print(f"[{label}] frame {f}: render_sharded {msn[-1]:.2f} ms, "
+              f"render_frame {ms1[-1]:.2f} ms; ray_count "
+              f"{int(on['ray_count'])} / {int(o1['ray_count'])}, rays_dropped "
+              f"0, mask pixels that differ {flips}, G-buffer normals that "
+              f"differ {normals}, image MAE {float(err.mean()):.3e} max "
+              f"{float(err.max()):.3e}, rays_traced {int(on['rays_traced'])} "
+              f"/ {int(o1['rays_traced'])}  [{card}]")
+    for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
+              "occlusion_brute"):
+        assert counts[k] == 0, (k, counts)
+    print(f"[{label}] launches in the {frames} sharded frames: "
+          f"{json.dumps(counts)}")
+    if frames > 1:
+        print(f"[{label}] steady (after frame 0): render_sharded "
+              f"{np.mean(msn[1:]):.2f} ms/frame, render_frame "
+              f"{np.mean(ms1[1:]):.2f} ms/frame  [{card}]")
+    gaze = gazes[-1]
+    k1 = cluster_device_ms(lambda: pipeline.render_frame(scene, cam, gaze,
+                                                         st1, cfg))
+    kn = cluster_device_ms(lambda: shd.render_sharded(scene, cam, gaze, stn,
+                                                      cfg, mesh))
+    print(f"[{label}] cluster kernels' device ms in one frame, row-major "
+          f"blocks (render_sharded) / 16x16 tiles (render_frame): "
+          + ", ".join(f"{k} {kn[k]:.3f} / {k1[k]:.3f}" for k in kn if k1[k])
+          + f"  [{card}]")
+    return counts
+
+
+def small_dist_run(mesh, card):
+    """The 2-rank comparison's work, on `mesh`: two sharded earth frames at
+    DIST_RES (bench configuration, budget fraction 1.0), gathered, and one
+    dense train step's loss and gradients at DIST_RES (optimize's
+    configuration)."""
+    from fovtrace_torch.app import trajectory
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.dist import collectives as coll
+    from fovtrace_torch.dist import sharding as shd
+    from fovtrace_torch.dist import train
+    from fovtrace_torch.scene import procedural
+
+    dev = mesh.device
+    earth = procedural.earth_scene(dev)
+    cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                        device=dev)
+    cfg = RenderConfig(width=DIST_RES, height=DIST_RES, ray_budget_frac=1.0,
+                       **GAZE_CFG)
+    gazes, _ = trajectory.make("circle", DIST_RES, DIST_RES, 2)
+    st = shd.initial_state_sharded(cam, cfg, mesh)
+    res, ms = {}, []
+    for f, gaze in enumerate(gazes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, st = shd.render_sharded(earth, cam, gaze, st, cfg, mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        full = shd.gather_frame(out, mesh)
+        for k in ("mask", "image", "ray_count", "rays_dropped"):
+            res[f"{k}{f}"] = full[k]
+        res[f"history{f}"] = coll.all_gather_rows(st.history, mesh, dim=1)
+    tcfg = RenderConfig(width=DIST_RES, height=DIST_RES, max_depth=2,
+                        diffuse_max_depth=1, reconstruction="none")
+    tcam = Camera.create(eye=TRAIN_EYE, target=TRAIN_TARGET, device=dev)
+    bh = DIST_RES // mesh.size
+    true = train.init_params(earth, tcam)
+    with torch.no_grad():
+        target = train.render_rows_dense(earth, tcam, true, mesh.rank * bh,
+                                         bh, tcfg, 0)
+    params = train.leaves(true.replace(eye=true.eye + 0.25))
+    train.broadcast_params(params, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = train.make_loss_and_grad(earth, tcam, tcfg, mesh)(
+        params, target, 0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    res["loss"] = loss
+    res.update({f"grad_{f.name}": g for f, g in
+                zip(dataclasses.fields(grads), grads.tensors())})
+    print(f"[dist {mesh.size}-rank] rank {mesh.rank}: {DIST_RES}x{DIST_RES} "
+          f"frames {', '.join(f'{t:.2f}' for t in ms)} ms; dense train step "
+          f"(loss and gradients) {step_ms:.2f} ms  [{card}]", flush=True)
+    return res
+
+
+def dist_worker(argv) -> int:
+    """One rank of the [dist 2-rank] phase: `chip_smoke.py --dist-worker
+    RANK WORLD INIT_URL OUT`. The ranks share one card, so the group is
+    gloo (NCCL refuses two ranks on one device); its collectives move CUDA
+    tensors by all-reduce and broadcast only."""
+    rank, world, url, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from fovtrace_torch.config import pin_fp32
+    from fovtrace_torch.dist import launch
+
+    pin_fp32("cuda")
+    launch.init_distributed(url, world, rank, device="cuda", backend="gloo")
+    mesh = launch.global_mesh("cuda")
+    res = small_dist_run(mesh, card_line())
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in res.items()}, out)
+    launch.shutdown()
+    return 0
+
+
+def dist_two_ranks(one, tmp, card):
+    """Two rank processes on the one card; rank 0's gathered result
+    against this process's one-rank result `one`: the masks bit for bit,
+    the frames and the train step within their tolerances."""
+    url = f"file://{tmp}/rdzv2"
+    out = os.path.join(tmp, "rank0.pt")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dist-worker", str(r), "2", url, out],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for log in logs:
+        print("\n".join(line for line in log.splitlines()
+                        if line.startswith("[dist")))
+    codes = [p.returncode for p in procs]
+    assert codes == [0, 0], (codes, "\n".join(logs)[-3000:])
+    print(f"[dist 2-rank] two processes on one card, a gloo group "
+          f"(all-reduce and broadcast of CUDA tensors); wall "
+          f"{time.perf_counter() - t0:.2f} s with their start")
+    two = torch.load(out, weights_only=True)
+    for f in range(2):
+        err = (two[f"image{f}"] - one[f"image{f}"].cpu()).abs()
+        off = err > DIST_ATOL + DIST_RTOL * one[f"image{f}"].cpu().abs()
+        herr = (two[f"history{f}"] - one[f"history{f}"].cpu()).abs()
+        print(f"[dist 2-rank] frame {f} against one rank: mask pixels that "
+              f"differ {int((two[f'mask{f}'] != one[f'mask{f}'].cpu()).sum())}"
+              f", ray_count {int(two[f'ray_count{f}'])} / "
+              f"{int(one[f'ray_count{f}'])}, image max |err| "
+              f"{float(err.max()):.3e} MAE {float(err.mean()):.3e}, pixels "
+              f"off the tolerance {int(off.any(-1).sum())}, history max "
+              f"|err| {float(herr.max()):.3e}")
+    for f in range(2):
+        assert torch.equal(two[f"mask{f}"], one[f"mask{f}"].cpu()), f
+        for k in ("ray_count", "rays_dropped"):
+            assert int(two[f"{k}{f}"]) == int(one[f"{k}{f}"]), (k, f)
+        assert int(two[f"rays_dropped{f}"]) == 0
+        for k in ("image", "history"):
+            torch.testing.assert_close(two[f"{k}{f}"], one[f"{k}{f}"].cpu(),
+                                       rtol=DIST_RTOL, atol=DIST_ATOL,
+                                       msg=f"{k} frame {f}")
+    worst = {}
+    for k in [k for k in one if k == "loss" or k.startswith("grad_")]:
+        a, b = two[k], one[k].cpu()
+        # rtol 1e-4; the floor only for components near 0
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-6 * float(b.abs().max()), msg=k)
+        worst[k] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    print(f"[dist 2-rank] masks bit for bit, frames within rtol {DIST_RTOL} "
+          f"/ atol {DIST_ATOL}; train step's largest relative difference "
+          f"per tensor {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}")
+
+
+def dense_rays(scene, cam, cfg) -> int:
+    """rays_traced of render_rows_dense's shade of the whole frame."""
+    from fovtrace_torch.core import rng, vec
+    from fovtrace_torch.render import shade
+
+    with torch.no_grad():
+        _, rd = cam.primary_rays_block(cfg.width, cfg.height, 0, cfg.height)
+        rd = vec.from_rows(rd.reshape(-1, 3))
+        pix = torch.arange(rd.x.shape[0], device=cam.device)
+        seeds = rng.pixel_seed(pix, torch.zeros_like(pix))
+        _, aux = shade.shade_v(scene, vec.splat(cam.eye, rd.shape), rd, seeds,
+                               cfg)
+    return int(aux["rays_traced"])
+
+
+def train_steps(earth, mesh, card, steps=2):
+    """One warm and `steps` timed train steps, dense and foveated (hard),
+    on earth at W x H in optimize's configuration, one rank."""
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.dist import train
+
+    cfg = RenderConfig(width=W, height=H, max_depth=2, diffuse_max_depth=1,
+                       reconstruction="none")
+    cam = Camera.create(eye=TRAIN_EYE, target=TRAIN_TARGET, device=mesh.device)
+    true = train.init_params(earth, cam)
+    with torch.no_grad():
+        target = train.render_rows_dense(earth, cam, true, 0, H, cfg, 0)
+    rays = dense_rays(earth, cam, cfg)
+    per_step = {}
+    for foveated in (False, True):
+        label = "train foveated" if foveated else "train dense"
+        params = train.leaves(true.replace(
+            eye=true.eye + 0.25, light_emission=true.light_emission * 1.5,
+            gaze_uv=torch.tensor([0.45, 0.55], device=mesh.device)))
+        opt = train.make_optimizer(params, 2e-2)
+        loss_and_grad = train.make_loss_and_grad(earth, cam, cfg, mesh,
+                                                 foveated=foveated)
+        step = train.make_train_step(earth, cam, cfg, mesh,
+                                     foveated=foveated)
+        step(params, opt, target, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = launches_since({})
+        ms = []
+        for s in range(steps):
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grad(params, target, s + 1)
+            for p, g in zip(params.tensors(), grads.tensors()):
+                p.grad = g
+            opt.step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {k: v / steps for k, v in launches_since(before).items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = float(np.mean(ms))
+        norms = {f.name: float(g.norm()) for f, g in
+                 zip(dataclasses.fields(grads), grads.tensors())}
+        print(f"[{label}] {W}x{H} earth, max_depth 2: steps "
+              f"{', '.join(f'{t:.2f}' for t in ms)} ms; {steady:.2f} ms/step, "
+              f"{rays} rays_traced a step (the forward), "
+              f"{rays / steady / 1e3:.2f} Mrays/s; peak memory {peak:.2f} GiB "
+              f"({base / 2**30:.2f} GiB before the steps); loss "
+              f"{float(loss):.6f}  [{card}]")
+        print(f"[{label}] gradient norms "
+              + ", ".join(f"|d {k}| {v:.6e}" for k, v in norms.items()))
+        print(f"[{label}] launches per step {json.dumps(counts)}")
+        for k, g in zip(norms, grads.tensors()):
+            assert bool(torch.isfinite(g).all()), (label, k)
+            if k == "gaze_uv" and not foveated:
+                assert norms[k] == 0.0, (label, k)   # the dense render
+            else:
+                assert norms[k] > 0.0, (label, k)
+        for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
+                  "occlusion_brute"):
+            assert counts[k] == 0, (k, counts)
+        assert counts["closest_hit"] > 0 and counts["occlusion"] > 0, counts
+        per_step[label] = counts
+        fwd_bwd_profile(label, lambda: loss_and_grad(params, target, 3),
+                        steady, card)
+    return per_step
+
+
+def optimize_runs(tmp, card):
+    """app/optimize as a user runs it, `--scene box` with --ckpt: the
+    README's 60 steps at the default 128x128 (the loss must fall; the
+    exit code is the run's verdict on the eye error, printed: the
+    reference's own run of this command ends at eye error 0.487 > 0.3,
+    exit 1, on the CPU); again with --steps 80 on the same directory
+    (must resume at 60); a run cut at 40 and resumed to 60, whose
+    parameters must equal the uninterrupted run's at step 60 (rtol
+    1e-6); and tests/test_checkpoint.py's configuration (32x32, 8 steps,
+    --perturb 0.25, --lr 3e-2), which must exit 0."""
+    from fovtrace_torch.dist import checkpoint as ckpt
+
+    def run(steps, d, *extra):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "fovtrace_torch.app.optimize",
+                            "--scene", "box", "--steps", str(steps), "--ckpt",
+                            d, *extra], capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [line for line in p.stderr.splitlines()
+                 if line.startswith("[optimize]")]
+        print(f"[optimize] --steps {steps} --ckpt {os.path.basename(d)} "
+              f"{' '.join(extra)}: exit {p.returncode}, process wall "
+              f"{wall:.2f} s; " + " | ".join(
+                  line for line in lines if "done" in line
+                  or "resumed" in line or "launches" in line))
+        assert p.returncode in (0, 1) and "done in" in p.stderr, \
+            p.stderr[-3000:]
+        return p.returncode, p.stderr
+
+    whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
+    _, err = run(60, whole)
+    losses = [float(m) for m in re.findall(r"loss=([0-9.]+)", err)]
+    assert losses[-1] < losses[0], losses
+    _, err = run(80, whole)
+    assert "resumed from step 60" in err, err[-3000:]
+    run(40, cut)
+    _, err = run(60, cut)
+    assert "resumed from step 40" in err, err[-3000:]
+    _, a = ckpt.restore(whole, step=60)
+    _, b = ckpt.restore(cut, step=60)
+    for k in a["params"]:
+        torch.testing.assert_close(b["params"][k], a["params"][k], rtol=1e-6,
+                                   atol=0, msg=k)
+    print(f"[optimize] cut at 40 and resumed: parameters at step 60 equal "
+          f"the uninterrupted run's (rtol 1e-6)  [{card}]")
+    rc, err = run(8, os.path.join(tmp, "small"), "--width", "32",
+                  "--height", "32", "--perturb", "0.25", "--lr", "3e-2")
+    assert rc == 0, err[-3000:]
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -1331,8 +1750,8 @@ def main() -> int:
     g_e, step_e, st_e, per_e, peak_e = fwd_bwd("main earth fwd+bwd", earth,
                                                cam, cfg_e, card, steps=3)
     assert per_e["closest_hit"] > 0 and per_e["occlusion"] > 0, per_e
-    fwd_bwd_profile("main earth fwd+bwd", earth, cam, cfg_e, st_e, step_e,
-                    card)
+    fwd_bwd_profile("main earth fwd+bwd", lambda: pipeline.grad_step(
+        earth, cam, (H // 2, W // 2), st_e, cfg_e), step_e, card)
     ph.start("main earth fwd+bwd remat")
     remat = cfg_e.replace(remat_shade=True)
     g_r, step_r, _, per_r, peak_r = fwd_bwd("main earth fwd+bwd remat",
@@ -1354,8 +1773,8 @@ def main() -> int:
                                         cfg_c, card, steps=2)
     assert per_c["closest_hit_stream"] > 0 and per_c["occlusion_stream"] > 0
     assert per_c["closest_hit"] == 0 and per_c["occlusion"] == 0
-    fwd_bwd_profile("main city fwd+bwd", city, cam, cfg_c, st_c, step_c,
-                    card)
+    fwd_bwd_profile("main city fwd+bwd", lambda: pipeline.grad_step(
+        city, cam, (H // 2, W // 2), st_c, cfg_c), step_c, card)
 
     ph.start("profile")
     frame_profile("earth", earth, cam, cfg_e, steady_e, card)
@@ -1430,7 +1849,39 @@ def main() -> int:
     ph.start("modes")
     modes(earth, cam, card)
     mode_goldens(earth, cam)
-    ph.end()
+
+    # ---- the row-sharded frame, the train step, app/optimize ----------------
+    from fovtrace_torch.dist import launch
+    from fovtrace_torch.dist import sharding as shd
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ph.start("dist 1-rank")
+        launch.init_distributed(f"file://{tmp}/rdzv1", 1, 0, device=dev)
+        mesh = shd.make_mesh(1, dev)
+        print(f"[dist 1-rank] process group: backend "
+              f"{torch.distributed.get_backend()}, world "
+              f"{torch.distributed.get_world_size()}, {mesh.device}")
+        dist_counts = dist_one_rank("dist 1-rank", earth, cam, cfg_e, mesh,
+                                    card, frames=3)
+        assert dist_counts["closest_hit"] > 0 and \
+            dist_counts["occlusion"] > 0, dist_counts
+        city_counts = dist_one_rank("dist 1-rank city", city, cam, cfg_c,
+                                    mesh, card, frames=1, exact=False)
+        assert city_counts["closest_hit_stream"] > 0 and \
+            city_counts["occlusion_stream"] > 0, city_counts
+        ph.start("dist 2-rank")
+        one = small_dist_run(mesh, card)
+        dist_two_ranks(one, tmp, card)
+        ph.start("train")
+        train_steps(earth, mesh, card)
+        launch.shutdown()
+        ph.start("optimize")
+        optimize_runs(tmp, card)
+        ph.end()
+    finally:
+        launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -74,6 +74,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="dump every Nth frame (0 = last frame only)")
     p.add_argument("--format", default="ppm", choices=["ppm", "npy"])
     p.add_argument("--report", default=None, help="per-frame CSV report path")
+    p.add_argument("--sharded", action="store_true",
+                   help="split the screen's rows over the ranks of the "
+                        "process group (dist.launch: torchrun or the "
+                        "FOVTRACE_* variables; one rank without them)")
     return p
 
 
@@ -147,13 +151,29 @@ def run(args, scene=None) -> dict:
         raise SystemExit("--device cuda, but torch.cuda.is_available() is "
                          "false")
     config = make_config(args)
+    mesh = None
+    if args.sharded:
+        from fovtrace_torch.dist import launch
+        from fovtrace_torch.dist import sharding as shd
+
+        launch.init_distributed(device=device)
+        mesh = shd.make_mesh(device=device)
+        device = mesh.device
     if scene is None:
         scene = load_scene(args.scene, device, args.light_power)
     cam = Camera.create(eye=tuple(args.eye), target=tuple(args.target),
                         device=device)
     gazes, poses = trajectory.make(args.gaze, args.height, args.width,
                                    args.frames)
-    state = pipeline.FrameState.initial(cam, config)
+    if mesh is None:
+        state = pipeline.FrameState.initial(cam, config)
+        render = pipeline.render_frame
+        whole = lambda out: out
+    else:
+        state = shd.initial_state_sharded(cam, config, mesh)
+        render = lambda *a: shd.render_sharded(*a, mesh)
+        whole = lambda out: shd.gather_frame(out, mesh)
+    writes = mesh is None or launch.is_coordinator()
     timer = profiler.StageTimer()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -168,7 +188,7 @@ def run(args, scene=None) -> dict:
             eye, tgt = poses[f]
             cam = Camera.create(eye=eye, target=tgt, device=device)
         t0 = time.perf_counter()
-        out, state = pipeline.render_frame(scene, cam, gaze, state, config)
+        out, state = render(scene, cam, gaze, state, config)
         sync()
         frame_ms = (time.perf_counter() - t0) * 1e3
         rays = int(out["ray_count"])
@@ -183,15 +203,19 @@ def run(args, scene=None) -> dict:
             "rays_traced": float(stats["rays_traced"][-1]),
             "ray_pct": 100.0 * rays / (args.width * args.height)})
         if args.out and args.save_every and f % args.save_every == 0:
-            save_frame(os.path.join(args.out, f"frame_{f:04d}"), args.format,
-                       to_u8_image(args.view, out))
+            img = to_u8_image(args.view, whole(out))
+            if writes:
+                save_frame(os.path.join(args.out, f"frame_{f:04d}"),
+                           args.format, img)
     if args.out and out is not None:
-        p = save_frame(os.path.join(args.out, "frame_final"), args.format,
-                       to_u8_image(args.view, out))
-        print(f"[fovtrace_torch] wrote {p}", file=sys.stderr)
-    if args.report:
+        img = to_u8_image(args.view, whole(out))
+        if writes:
+            p = save_frame(os.path.join(args.out, "frame_final"),
+                           args.format, img)
+            print(f"[fovtrace_torch] wrote {p}", file=sys.stderr)
+    if args.report and writes:
         timer.write_csv(args.report)
-    stats.update(out=out, config=config, state=state)
+    stats.update(out=out, config=config, state=state, mesh=mesh)
     return stats
 
 

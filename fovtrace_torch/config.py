@@ -24,8 +24,8 @@ INTERSECT_BACKENDS = ("auto", "cluster", "brute")
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render parameters; defaults match `fovtrace.RenderConfig`.
-    Fields that only unported paths read (samples_per_pixel, sharded
-    budgets) are left out."""
+    Fields that no path of the port reads (samples_per_pixel, tonemap)
+    are left out."""
 
     width: int = 1024
     height: int = 1024
@@ -48,6 +48,9 @@ class RenderConfig:
     #     counted in `rays_dropped`) ---
     ray_budget_frac: float = 0.35
     bounce_budget_fracs: tuple = (0.25, 0.06, 0.02)
+    # the row-sharded frame gives each tile this many times its equal
+    # share of the budget (the tile holding the fovea needs more than 1/N)
+    sharded_budget_factor: float = 2.0
 
     # --- thin-lens depth of field ---
     dof: bool = False

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from fovtrace_torch.core.camera import Camera
+from fovtrace_torch.dist.train import TrainParams
 from fovtrace_torch.render.pipeline import FrameState
 from fovtrace_torch.scene.scene import Materials, ParallelogramLight, Scene
 
@@ -87,3 +88,9 @@ def frame_state_from_numpy(d: Dict[str, Any], device) -> FrameState:
     cam = camera_from_numpy(_sub(d, "prev_camera."), device)
     state = _build(FrameState, d, device, nested={"prev_camera": cam})
     return dataclasses.replace(state, frame=state.frame.to(torch.int64))
+
+
+def train_params_from_numpy(d: Dict[str, Any], device) -> TrainParams:
+    """dist.train's parameters from {field name: array} (the reference's
+    TrainParams as `{k: np.asarray(v) for k, v in p._asdict().items()}`)."""
+    return _build(TrainParams, d, device)

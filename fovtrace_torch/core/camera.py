@@ -214,6 +214,34 @@ class Camera:
             near = vecm.splat(self.eye, (bh, width))
         return near, dirs
 
+    def primary_rays_block(self, width: int, height: int, y0: int,
+                           block_h: int, aspect=None):
+        """Row-layout primary rays for rows [y0, y0 + block_h) of the
+        W x H grid, the training render's rays: (origins, dirs), each
+        [block_h, W, 3]. Rounded as the reference's compiled
+        `primary_rays_block`: the NDC map is one fused multiply-add by
+        2 / size, the homogeneous product sums the x and y terms and then
+        the constant column (inv[:, 3] - inv[:, 2]), and the norm is a
+        contracted dot product."""
+        if aspect is None:
+            aspect = float(width) / float(height)
+        dev = self.device
+        ndc = lambda p, n: mathx.fma(p, float(np.float32(2.0) / np.float32(n)),
+                                     -1.0)
+        ndc_x = ndc(torch.arange(width, dtype=torch.float32, device=dev),
+                    width)[None, :].expand(block_h, width)
+        ndc_y = ndc(torch.arange(block_h, dtype=torch.float32, device=dev)
+                    + float(y0), height)[:, None].expand(block_h, width)
+        inv = self.inv_mvp(aspect)
+        world = [(inv[i, 0] * ndc_x + inv[i, 1] * ndc_y)
+                 + (inv[i, 3] - inv[i, 2]) for i in range(4)]
+        v = vecm.Vec3(*(world[i] / world[3] for i in range(3))) \
+            - vecm.of(self.eye)
+        n2 = mathx.fma(v.z, v.z, mathx.fma(v.y, v.y, v.x * v.x))
+        dirs = vecm.to_rows(v) / mathx.sqrt_rn(torch.clamp_min(n2, 1e-20))[
+            ..., None]
+        return self.eye.expand(dirs.shape), dirs
+
     def world_to_screen_v(self, p: vecm.Vec3, width: int, height: int,
                           aspect=None):
         """World points -> (u, v) pixel coordinates in this camera."""

@@ -21,8 +21,13 @@ _KERNEL = [
 
 
 def atrous_step_v(color: Vec3, position: Vec3, normal: Vec3, c_phi, n_phi,
-                  p_phi, step: int) -> Vec3:
-    """One 25-tap pass at the given step width (planar [H,W])."""
+                  p_phi, step: int, row_valid=None) -> Vec3:
+    """One 25-tap pass at the given step width (planar [H,W]).
+
+    row_valid: optional [H] bool, the rows that are screen rows. A
+    row-sharded tile passes its rows padded with halos, zero past the
+    screen's edges; masking those taps gives the single-frame filter's
+    out-of-bounds behaviour (dist.recon)."""
     h, w = color.x.shape
     dev = color.x.device
     ys = torch.arange(h, device=dev)[:, None]
@@ -35,6 +40,8 @@ def atrous_step_v(color: Vec3, position: Vec3, normal: Vec3, c_phi, n_phi,
             dx = (i - 2) * step
             roll = lambda p: torch.roll(p, shifts=(dy, dx), dims=(0, 1))
             valid = (ys - dy >= 0) & (ys - dy < h) & (xs - dx >= 0) & (xs - dx < w)
+            if row_valid is not None:
+                valid = valid & torch.roll(row_valid, dy)[:, None]
             ctap = color.map(roll)
             dc = color - ctap
             c_w = torch.clamp_max(torch.exp(-vec.dot(dc, dc) / c_phi), 1.0)

@@ -82,9 +82,15 @@ def velocity_map(velocity):
     return _VEL_K * torch.exp(-v / (m * m)) + 1.0
 
 
-def compute_saliency(gbuf, gaze_px, bbox_diag, block: int = 4):
+def compute_saliency(gbuf, gaze_px, bbox_diag, block: int = 4,
+                     row_offset: int = 0, focal=None):
     """Saliency field [H,W] from the planar G-buffers. gaze_px: (gy, gx)
-    ints; bbox_diag: the scene bbox diagonal (for the DOF width)."""
+    ints; bbox_diag: the scene bbox diagonal (for the DOF width).
+
+    A row-sharded tile passes `row_offset`, the global row of its local
+    row 0 (a multiple of `block`, so the corner grid stays the global
+    one), and `focal`, the gaze pixel's depth, which one tile owns
+    (dist.sharding)."""
     h, w = gbuf["depth"].shape
     dev = gbuf["depth"].device
     if h % block == 0 and w % block == 0:
@@ -109,7 +115,8 @@ def compute_saliency(gbuf, gaze_px, bbox_diag, block: int = 4):
     orient = torch.atan(gy / torch.where(gx.abs() < 1e-12, 1e-12, gx))
 
     theta = bbox_diag * 0.005
-    focal = gbuf["depth"][gaze_px[0], gaze_px[1]]
+    if focal is None:
+        focal = gbuf["depth"][gaze_px[0], gaze_px[1]]
     s_depth_c = depth_saliency(corner(gbuf["depth"]), theta, focal)
     s_shadow = bcast(corner(gbuf["shadow"]))
 
@@ -118,9 +125,11 @@ def compute_saliency(gbuf, gaze_px, bbox_diag, block: int = 4):
     ngx, ngy = sobel(ngray_c, scale=corner_scale)
     s_normal_grad = mathx.sqrt_rn(ngx ** 2 + ngy ** 2)
 
-    # velocity from the reprojection offset is per pixel
+    # velocity from the reprojection offset is per pixel, in global
+    # pixel coordinates (those of reproject_u / v)
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    py = (torch.arange(h, dtype=torch.float32, device=dev)
+          + float(row_offset))[:, None]
     qu, qv = gbuf["reproject_u"], gbuf["reproject_v"]
     vel = 0.5 * mathx.sqrt_rn((px - qu) ** 2 + (py - qv) ** 2)
     vel = torch.where((qu < 0.0) & (qv < 0.0), 0.0, vel)

@@ -22,10 +22,15 @@ MASK_75 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0]],
                      bool)
 
 
-def gaze_distance(height: int, width: int, gaze_px, device) -> torch.Tensor:
-    """|pixel - gaze| / |screen diagonal|, [H,W]."""
+def gaze_distance(height: int, width: int, gaze_px, device,
+                  row_offset: int = 0, block_h: int | None = None
+                  ) -> torch.Tensor:
+    """|pixel - gaze| / |screen diagonal|, [H,W] (rows [row_offset,
+    row_offset + block_h) of it with block_h set)."""
     gy, gx = gaze_px
-    py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    bh = height if block_h is None else block_h
+    py = (torch.arange(bh, dtype=torch.float32, device=device)
+          + float(row_offset))[:, None]
     px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
     d = mathx.sqrt_rn((px - gx) ** 2 + (py - gy) ** 2)
     return d / float(np.sqrt(np.float32(float(width) ** 2
@@ -49,18 +54,23 @@ def author_sample_rate(gaze_dist, aperture: float):
 
 
 def logpolar_sampling(height: int, width: int, gaze_px, device,
-                      kernel_scale: float = 0.25):
+                      kernel_scale: float = 0.25, row_offset: int = 0,
+                      block_h: int | None = None):
     """[H,W] bool: a pixel is sampled iff it comes back to within
     sqrt(1.5 sqrt 2) px through the quarter-size log-polar buffer, its
-    (u, v) rounded to that buffer's texels on the way."""
+    (u, v) rounded to that buffer's texels on the way. Each pixel is
+    independent, so a row-sharded tile evaluates its rows [row_offset,
+    row_offset + block_h) of the one global pattern."""
     from fovtrace_torch.kernels import logpolar
 
     gy, gx = gaze_px
     kh = int(height * kernel_scale)
     kw = int(width * kernel_scale)
-    py = torch.arange(height, dtype=torch.float32, device=device)[:, None]
+    bh = height if block_h is None else block_h
+    py = (torch.arange(bh, dtype=torch.float32, device=device)
+          + float(row_offset))[:, None]
     px = torch.arange(width, dtype=torch.float32, device=device)[None, :]
-    py, px = py.expand(height, width), px.expand(height, width)
+    py, px = py.expand(bh, width), px.expand(bh, width)
     u, v = logpolar.forward_coords(px, py, gx, gy, kw, kh)
     x2, y2 = logpolar.inverse_coords(torch.round(u), torch.round(v), gx, gy,
                                      kw, kh)

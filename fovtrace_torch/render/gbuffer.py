@@ -58,13 +58,19 @@ def shadow_rays(scene, rd_f, hit, surf, config):
 
 
 def trace_gbuffer(scene, camera, prev_camera, width: int, height: int,
-                  config) -> dict:
+                  config, y0: int | None = None,
+                  block_h: int | None = None) -> dict:
     """Planar G-buffers (see the module docstring), plus `rays_traced`:
-    primary rays and the shadow rays actually issued."""
-    ro, rd = camera.primary_rays_v(width, height)
+    primary rays and the shadow rays actually issued.
+
+    With y0 / block_h set, traces only rows [y0, y0 + block_h), the
+    row-sharded frame's block (dist.sharding). A row block is traced in
+    scanline order, not in 16x16 tiles, as the reference's is."""
+    bh = height if block_h is None else block_h
+    ro, rd = camera.primary_rays_v(width, height, y0=y0 or 0, block_h=bh)
     ro_f = ro.map(lambda a: a.reshape(-1))
     rd_f = rd.map(lambda a: a.reshape(-1))
-    sw = _can_swizzle(height, width)
+    sw = block_h is None and _can_swizzle(height, width)
     if sw:
         swz = lambda a: swizzle_to_tiles(a, height, width)
         ro_f, rd_f = ro_f.map(swz), rd_f.map(swz)
@@ -96,7 +102,7 @@ def trace_gbuffer(scene, camera, prev_camera, width: int, height: int,
             albedo.map(unsw)
         shadow, depth, ru, rv, valid = (unsw(shadow), unsw(depth), unsw(ru),
                                         unsw(rv), unsw(valid))
-    r2 = lambda a: a.reshape(height, width)
+    r2 = lambda a: a.reshape(bh, width)
     return {
         "position": point.map(r2),
         "normal": gnormal.map(r2),
@@ -106,5 +112,5 @@ def trace_gbuffer(scene, camera, prev_camera, width: int, height: int,
         "reproject_u": r2(ru),
         "reproject_v": r2(rv),
         "hit_valid": r2(valid),
-        "rays_traced": height * width + relevant.sum(),
+        "rays_traced": bh * width + relevant.sum(),
     }

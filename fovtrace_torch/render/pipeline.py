@@ -65,6 +65,42 @@ def stage_gbuffer(scene, camera, prev_camera, config: RenderConfig):
                                      config.height, config)
 
 
+def bbox_diagonal(scene) -> torch.Tensor:
+    """The scene bbox's diagonal (the saliency's depth-of-field width)."""
+    d = scene.bbox_max - scene.bbox_min
+    return mathx.sqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+
+
+def sample_mask(sal, gaze_px, frame, config: RenderConfig, y0: int = 0):
+    """The sample mask of rows [y0, y0 + bh) in the configured sampling
+    mode, bh being the saliency's rows (the whole frame, or a sharded
+    tile's block: every mode evaluates the one global pattern)."""
+    h, w = config.height, config.width
+    bh = sal.shape[0]
+    dev = sal.device
+    gdist = sampling.gaze_distance(h, w, gaze_px, dev, row_offset=y0,
+                                   block_h=bh)
+    mode = config.sampling_mode
+    if mode == "full":
+        return torch.ones((bh, w), dtype=torch.bool, device=dev)
+    if mode in ("weier", "author"):
+        # stochastic falloffs: one uniform draw per pixel and frame
+        if mode == "weier":
+            rate = sampling.weier_sample_rate(gdist, config.aperture,
+                                              config.p_min)
+        else:
+            rate = sampling.author_sample_rate(gdist, config.aperture)
+        pix = torch.arange(bh * w, dtype=torch.int64, device=dev) + y0 * w
+        return rng.rnd(rng.pixel_seed(pix.reshape(bh, w), frame))[0] < rate
+    if mode == "logpolar":
+        return sampling.logpolar_sampling(h, w, gaze_px, dev, row_offset=y0,
+                                          block_h=bh)
+    # masked: the dither tables and the sparse floor index the block's own
+    # rows, so a tile's y0 must be a multiple of 8
+    return sampling.masked_sampling(bh, w, gdist, sal, config.aperture,
+                                    config.extra_sample_rate)
+
+
 def stage_sampling(scene, gbuf, gaze_px, state: FrameState,
                    config: RenderConfig):
     """Cache validation, saliency and the sample mask. Returns (mask,
@@ -76,30 +112,9 @@ def stage_sampling(scene, gbuf, gaze_px, state: FrameState,
         history=state.history)
     if not config.temporal:
         is_valid = torch.zeros_like(is_valid)
-    d = scene.bbox_max - scene.bbox_min
-    bbox_diag = mathx.sqrt_rn(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    sal = saliency.compute_saliency(gbuf, gaze_px, bbox_diag,
+    sal = saliency.compute_saliency(gbuf, gaze_px, bbox_diagonal(scene),
                                     config.saliency_block)
-    dev = sal.device
-    gdist = sampling.gaze_distance(h, w, gaze_px, dev)
-    mode = config.sampling_mode
-    if mode == "full":
-        mask = torch.ones((h, w), dtype=torch.bool, device=dev)
-    elif mode in ("weier", "author"):
-        # stochastic falloffs: one uniform draw per pixel and frame
-        if mode == "weier":
-            rate = sampling.weier_sample_rate(gdist, config.aperture,
-                                              config.p_min)
-        else:
-            rate = sampling.author_sample_rate(gdist, config.aperture)
-        pix = torch.arange(h * w, dtype=torch.int64, device=dev)
-        mask = rng.rnd(rng.pixel_seed(pix.reshape(h, w), state.frame))[0] \
-            < rate
-    elif mode == "logpolar":
-        mask = sampling.logpolar_sampling(h, w, gaze_px, dev)
-    else:  # "masked"
-        mask = sampling.masked_sampling(h, w, gdist, sal, config.aperture,
-                                        config.extra_sample_rate)
+    mask = sample_mask(sal, gaze_px, state.frame, config)
     p = gbuf["position"]
     gy, gx = gaze_px
     gaze_target = torch.stack([p.x[gy, gx], p.y[gy, gx], p.z[gy, gx]])
@@ -130,13 +145,18 @@ def stage_compact(mask, config: RenderConfig):
 
 def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
                 state: FrameState, config: RenderConfig, gaze_target, rank,
-                gate):
+                gate, y0: int = 0):
     """Foveated path trace of the compacted rays and the temporal
     accumulate. Returns ((shading rgb, alpha), history [4,H,W],
-    traced mask [H,W], rays_traced)."""
+    traced mask [H,W], rays_traced). A row-sharded tile passes its first
+    row `y0` (its pixel ids `idx` are then local to its [bh, W] rows):
+    seeds and jitter come from the global pixel ids, so every tiling
+    traces the same rays."""
     h, w = config.height, config.width
-    py = (idx // w).to(torch.float32)
-    px = (idx % w).to(torch.float32)
+    bh = is_valid.shape[0]
+    gidx = idx + y0 * w
+    py = (gidx // w).to(torch.float32)
+    px = (gidx % w).to(torch.float32)
     c_history = reproject.history_from_fetch(fetched, is_valid)
     hrows = fetched[idx].T                                 # [5, budget]
     vray = is_valid.reshape(-1)[idx] > 0.0
@@ -144,7 +164,7 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
 
     # the seed depends on the frame only once history exists
     seed_frame = torch.where(hist_count > 0.0, state.frame, 0)
-    seeds = rng.pixel_seed(idx, seed_frame)
+    seeds = rng.pixel_seed(gidx, seed_frame)
     j1, seeds = rng.rnd(seeds)
     j2, seeds = rng.rnd(seeds)
     ndc_x = (px + j1 - 0.5) / w * 2.0 - 1.0
@@ -159,7 +179,7 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
                                                    config.lens_radius, u1, u2)
 
     radiance, shade_aux = shade_mod.shade_v(scene, origins, dirs, seeds,
-                                            config)
+                                            config, active=active)
     tm = radiance.map(lambda c: colorx.uncharted2_tonemap(
         c, config.exposure_bias))
 
@@ -169,8 +189,8 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
                         dim=-1)                            # [B, 5]
     acc = sampling.expand_by_rank(rows5, rank.reshape(-1), gate.reshape(-1),
                                   idx, active).T           # [5, H*W]
-    history = c_history + acc[:4].reshape(4, h, w)
-    traced_mask = acc[4].reshape(h, w)
+    history = c_history + acc[:4].reshape(4, bh, w)
+    traced_mask = acc[4].reshape(bh, w)
     cnt = history[3]
     inv = mathx.safe_inv_pos(cnt)
     shading_rgb = Vec3(history[0] * inv, history[1] * inv, history[2] * inv)

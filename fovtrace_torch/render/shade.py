@@ -178,11 +178,19 @@ def _bounce(scene, config, bounce, origin, direction, throughput, seeds,
             first)
 
 
-def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config):
+def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config,
+            active: torch.Tensor | None = None):
     """Radiance for a flat front of rays.
 
     ro, rd: Vec3 of [N]; seeds: [N] int64 RNG states. Returns (radiance
-    Vec3 of [N], aux dict: first-hit point/normal/t and rays_traced)."""
+    Vec3 of [N], aux dict: first-hit point/normal/t and rays_traced).
+
+    `active` ([N] bool) marks the lanes that carry a pixel's ray; the
+    rest pad a compacted front to its static budget. Every lane is traced
+    in the first bounce, as the reference traces (and counts) them, but
+    only active lanes continue: the reference lets the padding lanes,
+    copies of one pixel's ray, go on bouncing, where they can crowd the
+    real survivors out of the next bounce's budget."""
     from fovtrace_torch.kernels import sampling
 
     n = ro.x.shape[0]
@@ -210,6 +218,8 @@ def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config):
          first) = body(scene, config, bounce, origin, direction, throughput,
                        seeds, gi_depth, alive)
         rays_traced = rays_traced + traced
+        if bounce == 0 and active is not None:
+            alive = alive & active
         result = Vec3(result.x.index_add(0, pix, add.x),
                       result.y.index_add(0, pix, add.y),
                       result.z.index_add(0, pix, add.z))
