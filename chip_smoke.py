@@ -33,8 +33,10 @@ non-zero):
                  bench configuration, 3 frames of the circle gaze; counts
                  kernel launches and plain/brute calls during that run
   main city      the same on city, through the streaming kernels
-  profile        per-stage times (a synchronise after each stage) and a
-                 torch.profiler summary of one frame of each scene
+  profile        per-stage times (render.staged: a synchronise after each
+                 stage, the reference's report names GB, Sampling,
+                 Optimize, Shading, PPI, AT) and a torch.profiler summary
+                 of one frame of each scene
   timing         each kernel, its plain version and its bound at the
                  main path's shapes: the 1920x1088 G-buffer and the
                  bounce-0 front of the earth (resident) and city
@@ -85,6 +87,36 @@ non-zero):
                  64x64 mode goldens (earth_jfa against its golden; the
                  stale earth_sibson and earth_logpolar against the port's
                  CPU frames)
+  assets build   writes seeded scene files (tests/torch_asset_files.py):
+                 a resource directory as reference_assets_scene reads it
+                 (CedarCity.hdr 800x1600 in RLE scanlines and
+                 vokselia_spawn.png 2048x2048 with rows in all five PNG
+                 filters, the reference's own sizes; grid.ppm 512x512,
+                 bunny.PPM 256x256, the .mtl files), city's mesh as an OBJ
+                 twice (geometry only: the native parser; with vt / vn,
+                 usemtl groups and a PNG map_Kd: the Python parser) and a
+                 JSON spec (the textured city scaled and moved, a glass
+                 icosphere, the HDR); times each load step on the host
+                 and loads the three scenes with the CLI's loader
+                 (triangles, route: the asset scene resident, the others
+                 streaming)
+  main assets    the CLI's run on the resource directory at 1920x1088 (the
+                 bench configuration, --profile-stages, --report, a BMP
+                 dump): launches, no plain / brute / bvh call, peak memory,
+                 stage columns, a lit finite image, the BMP read back by
+                 image_io.load_bmp equal to the frame; then a profiled
+                 frame (device time, busy share, top kernels)
+  main city-obj, main spec
+                 the same on the city OBJ and the spec (streaming kernels;
+                 both through the texel gather on that route)
+  parity assets  the resident kernels against their plain versions on the
+                 asset scene's ray sets, and its 256x256 frame with the
+                 kernels against the plain versions
+  bvh            the bvh backend (plain torch) on earth's 256x256 primary
+                 rays against the cluster kernels (the same ids, refined t
+                 within rtol 1e-4 / atol 1e-5), its time and device
+                 launches; a 256x256 frame with intersect_backend bvh
+                 against the cluster route's (mask, counts, image MAE)
   dist 1-rank    an NCCL process group of one; the bench frame through
                  dist.sharding.render_sharded (rows in scanline order) and
                  through render_frame, in turns, 3 circle-gaze frames: the
@@ -500,9 +532,10 @@ def bench_probe_frac(scene, cam, **extra):
     return need, frac, cfg.replace(ray_budget_frac=frac)
 
 
-def main_path(label, scene_name, scene, cam, card):
-    """The CLI's run on one scene at W x H, 3 frames; returns (launch
-    counts during exactly that run, bench config, steady ms/frame)."""
+def main_path(label, scene_name, scene, cam, card, extra=()):
+    """The CLI's run on one scene at W x H, 3 frames (`extra`: more CLI
+    arguments); returns (launch counts during exactly that run, bench
+    config, steady ms/frame, the run's stats)."""
     from fovtrace_torch.app import cli
     from fovtrace_torch.kernels import cluster_isect as ci
 
@@ -513,12 +546,14 @@ def main_path(label, scene_name, scene, cam, card):
         "--device", DEVICE, "--scene", scene_name, "--width", str(W),
         "--height", str(H), "--frames", "3", "--gaze", "circle",
         "--reconstruction", "atrous", "--max-depth", "4", "--gi-depth", "1",
-        "--ray-budget-frac", str(frac)])
+        "--ray-budget-frac", str(frac), *extra])
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ci.reset_counters()
     stats = cli.run(args, scene=scene)
     torch.cuda.synchronize()
     counts = ci.counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     out = stats["out"]
     img = torch.stack([out["image_rgb"].x, out["image_rgb"].y,
                        out["image_rgb"].z])
@@ -531,9 +566,10 @@ def main_path(label, scene_name, scene, cam, card):
     assert bool(torch.isfinite(img).all()), "non-finite image"
     assert 0.05 < mean < 0.95, f"implausible frame mean {mean}"
     for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
-              "occlusion_brute"):
+              "occlusion_brute", "intersect_bvh", "occlusion_bvh"):
         assert counts[k] == 0, (k, counts)
     assert not probe_calls(), probe_calls()
+    print(f"[{label}] peak device memory {peak:.2f} GiB  [{card}]")
     for f, (ms, rays) in enumerate(zip(stats["frame_ms"],
                                        stats["rays_traced"])):
         print(f"[{label}] frame {f}: {ms:.2f} ms, rays_traced {rays}, "
@@ -543,7 +579,7 @@ def main_path(label, scene_name, scene, cam, card):
     print(f"[{label}] {scene_name} {W}x{H} steady {steady:.2f} ms/frame, "
           f"{rays:.0f} rays_traced/frame, {rays / steady / 1e3:.2f} Mrays/s "
           f"[{card}]")
-    return counts, cfg, steady
+    return counts, cfg, steady, stats
 
 
 def capture_inputs(scene, cam, cfg):
@@ -573,35 +609,15 @@ def capture_inputs(scene, cam, cfg):
 
 
 def stage_times(scene, cam, cfg, st, gaze) -> dict:
-    """ms of each stage of one frame, a synchronise after each stage."""
-    from fovtrace_torch.render import pipeline
+    """ms of each stage of one frame (render.staged: a synchronise after
+    each stage), by the reference's report names."""
+    from fovtrace_torch.app.profiler import StageTimer
+    from fovtrace_torch.render import staged
 
-    ms = {}
-    t0 = time.perf_counter()
-
-    def tick(name):
-        nonlocal t0
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ms[name] = (t1 - t0) * 1e3
-        t0 = t1
-
+    timer = StageTimer()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gbuf = pipeline.stage_gbuffer(scene, cam, st.prev_camera, cfg)
-    tick("gbuffer")
-    mask, _, is_valid, fetched, gaze_target, _ = pipeline.stage_sampling(
-        scene, gbuf, gaze, st, cfg)
-    tick("sampling")
-    idx, active, rank, gate = pipeline.stage_compact(mask, cfg)
-    tick("compact")
-    (rgb, alpha), _, _, _ = pipeline.stage_shade(
-        scene, cam, idx, active, fetched, is_valid, st, cfg, gaze_target,
-        rank, gate)
-    tick("shade")
-    pipeline.stage_reconstruct(rgb, alpha, gbuf, cfg)
-    tick("reconstruct")
-    return ms
+    staged.render_frame_staged(scene, cam, gaze, st, cfg, timer)
+    return timer.means()
 
 
 def fmt_stages(ms: dict) -> str:
@@ -1643,6 +1659,226 @@ def optimize_runs(tmp, card):
     assert rc == 0, err[-3000:]
 
 
+# ---- scenes from files (scene/{assets,obj,image_io}.py, the CLI's loader)
+# CedarCity.hdr and vokselia_spawn.png at the reference's own sizes
+# (tests/test_assets.py:101, 117); grid.ppm and bunny.PPM at sizes chosen
+# here; the atlas then holds three 1024x1024 textures
+ASSET_SIZES = dict(hdr=(800, 1600), png=2048, grid=512, bunny=256)
+# the procedural stand-ins of reference_assets_scene at vokselia_extent 4:
+# plane, voxel world, icosphere, uv sphere, box
+ASSET_TRIANGLES = 2 + 1776 + 1280 + 3968 + 12
+STAGES = ("GB", "Sampling", "Optimize", "Shading", "JFA", "SI", "PPI", "AT")
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def asset_writers():
+    """tests/torch_asset_files.py, the seeded scene-file writers of the
+    CPU tests (numpy and fovtrace_torch only)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_asset_files
+    return torch_asset_files
+
+
+def assets_build(tmp, dev):
+    """Write the file scenes into tmp, time each load step on the host,
+    and load the three scenes through the CLI's loader onto the card.
+    Returns {label: (path, scene)}."""
+    from fovtrace_torch.app import cli
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.scene import assets, image_io, obj, procedural
+    from fovtrace_torch.scene import bvh as bvh_mod
+
+    taf = asset_writers()
+    res = os.path.join(tmp, "resource")
+    glass = [procedural._mesh(procedural.icosphere(0.6, (0.0, 0.0, 0.0),
+                                                   subdiv=3), 0)]
+    _, s_write = timed(lambda: (
+        taf.write_resource_dir(res, **ASSET_SIZES),
+        taf.write_mesh_scene(tmp, procedural.city_meshes(), "city",
+                             textured=False),
+        taf.write_mesh_scene(tmp, procedural.city_meshes(), "city_tex",
+                             textured=True, tex_size=1024),
+        taf.write_mesh_scene(tmp, glass, "glass", textured=False)))
+    city, city_tex, glass = (os.path.join(tmp, f"{n}.obj")
+                             for n in ("city", "city_tex", "glass"))
+    spec = taf.write_spec(tmp, city_tex, glass,
+                          os.path.join(res, "CedarCity.hdr"))
+    print(f"[assets build] wrote {res} (CedarCity.hdr 800x1600 in RLE "
+          f"scanlines, vokselia_spawn/vokselia_spawn.png 2048x2048 RGB with "
+          f"rows in all five PNG filters, grid.ppm 512x512, bunny/bunny.PPM "
+          f"256x256, the two .mtl), city.obj (geometry only), city_tex.obj "
+          f"(v/vt/vn, four usemtl groups, a 1024x1024 PNG map_Kd), "
+          f"glass.obj and spec.json in {s_write:.2f} s")
+    steps = {}
+    env, steps["HDR decode"] = timed(lambda: image_io.load_hdr(
+        os.path.join(res, "CedarCity.hdr")))
+    png_path = os.path.join(res, "vokselia_spawn", "vokselia_spawn.png")
+    png, steps["PNG decode"] = timed(lambda: image_io.load_png(png_path))
+    side = ASSET_SIZES["png"]
+    assert env.shape == (*ASSET_SIZES["hdr"], 3) and png.shape == (side,
+                                                                   side, 3)
+    geo, steps["OBJ parse native"] = timed(lambda: obj.load_obj(city))
+    tex, steps["OBJ parse Python"] = timed(lambda: obj.load_obj(city_tex))
+    np.testing.assert_array_equal(geo[0], tex[0])
+    np.testing.assert_array_equal(geo[1], tex[1])
+    assert geo[2] is None and tex[2] is not None and len(tex[5]) == 4
+    textures = [assets._load_texture(os.path.join(res, *p)) for p in
+                (("grid.ppm",), ("vokselia_spawn", "vokselia_spawn.png"),
+                 ("bunny", "bunny.PPM"))]
+    atlas, steps["atlas"] = timed(lambda: assets.build_texture_atlas(
+        textures))
+    a_side = min(1024, max(ASSET_SIZES[k] for k in ("png", "grid", "bunny")))
+    assert atlas.shape == (3, a_side, a_side, 3)
+    scenes = {}
+    for label, path in (("assets", res), ("city-obj", city), ("spec", spec)):
+        sc, sec = timed(lambda: cli.load_scene(path, dev))
+        nc, c = sc.cluster_aabb.shape[0], sc.isect_coef.shape[2] // 4
+        real = int((sc.mat_id >= 0).sum())
+        pack = sc.isect_coef.numel() * sc.isect_coef.element_size()
+        print(f"[assets build] {label}: cli.load_scene {sec:.2f} s; {real} "
+              f"triangles ({sc.num_triangles} after padding), NC {nc}, pack "
+              f"{pack / 1e6:.2f} MB, route {ci.route(nc, c)}; textures "
+              f"{tuple(sc.textures.shape)}, envmap {tuple(sc.envmap.shape)}")
+        scenes[label] = (path, sc)
+    for label in ("assets", "city-obj"):
+        host = scenes[label][1].to("cpu")
+        _, steps[f"BVH {label}"] = timed(lambda: bvh_mod.build_bvh(
+            host.v0.numpy(), host.e1.numpy(), host.e2.numpy(),
+            host.mat_id.numpy() >= 0))
+        _, steps[f"pack {label}"] = timed(host.with_pack)
+    print("[assets build] seconds per load step on the host: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in steps.items()))
+    route = lambda sc: ci.route(sc.cluster_aabb.shape[0],
+                                sc.isect_coef.shape[2] // 4)
+    a = scenes["assets"][1]
+    assert int((a.mat_id >= 0).sum()) == ASSET_TRIANGLES
+    assert route(a) == "resident" and tuple(a.textures.shape) == \
+        atlas.shape and tuple(a.envmap.shape) == env.shape
+    assert route(scenes["city-obj"][1]) == "stream"
+    assert route(scenes["spec"][1]) == "stream"
+    return scenes
+
+
+def file_scene_run(label, path, scene, cam, card, tmp, route):
+    """main_path on a scene from files, through the CLI with
+    --profile-stages, --report and a BMP dump: the stage columns, and
+    the BMP read back by load_bmp equal to the frame's buffer; then a
+    profiled frame (frame_profile). `route` is the kernel pair the scene
+    must take ("" resident, "_stream")."""
+    from fovtrace_torch.app import cli
+    from fovtrace_torch.scene import image_io
+
+    out_dir = os.path.join(tmp, label.replace(" ", "_"))
+    report = out_dir + ".csv"
+    counts, cfg, steady, stats = main_path(
+        label, path, scene, cam, card, extra=(
+            "--profile-stages", "--out", out_dir, "--format", "bmp",
+            "--report", report))
+    other = "_stream" if route == "" else ""
+    for k in ("closest_hit", "occlusion"):
+        assert counts[k + route] > 0 and counts[k + other] == 0, counts
+    with open(report) as f:
+        header = f.readline().strip().split(",")
+    rows = stats["timer"].frame_rows[1:]
+    stage_ms = {k: float(np.mean([r[k] for r in rows])) for k in header
+                if k in STAGES}
+    print(f"[{label}] --report columns {header}")
+    print(f"[{label}] steady stages (ms, a synchronise after each): "
+          f"{fmt_stages(stage_ms)}  [{card}]")
+    assert list(stage_ms) == ["GB", "Sampling", "Optimize", "Shading",
+                              "PPI", "AT"] and "Total" in header, header
+    bmp = image_io.load_bmp(os.path.join(out_dir, "frame_final_a0.070.bmp"))
+    want = cli.to_u8_image("image", stats["out"]) / np.float32(255.0)
+    same = bool(np.array_equal(bmp, want))
+    print(f"[{label}] frame_final_a0.070.bmp {bmp.shape} read back by "
+          f"image_io.load_bmp equals the frame's buffer: {same}")
+    assert same
+    frame_profile(label.split()[-1], scene, cam, cfg, steady, card)
+    return counts, cfg, steady
+
+
+def bvh_phase(earth, cam, card):
+    """The plain-torch bvh backend on earth: its hits on the RES x RES
+    primary rays against the cluster kernels' (the same ids, refined t
+    within rtol 1e-4 / atol 1e-5, as tests/test_bvh.py), its time and
+    device launches; then a RES x RES frame with intersect_backend="bvh"
+    against the cluster route's frame."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.kernels import bvh_traverse
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.kernels import intersect as isect
+    from fovtrace_torch.render import gbuffer, pipeline
+
+    ro, rd = cam.primary_rays_v(RES, RES)
+    swz = lambda a: gbuffer.swizzle_to_tiles(a.reshape(-1), RES, RES)
+    ro, rd = ro.map(swz), rd.map(swz)
+    run = lambda: bvh_traverse.intersect_bvh(earth, ro, rd, 1e-3,
+                                             isect.BIG_T)
+    hb = run()
+    ms = cuda_ms(run, iters=3, warmup=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    launched = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    hc = ci.intersect_cluster(earth, ro, rd, 1e-3, isect.BIG_T)
+    kms = cuda_ms(lambda: ci.intersect_cluster(earth, ro, rd, 1e-3,
+                                               isect.BIG_T), iters=10)
+    tb = isect.refine_hit_v(earth, ro, rd, hb).t
+    tc = isect.refine_hit_v(earth, ro, rd, hc).t
+    hit = hc.tri >= 0
+    same = int((hb.tri == hc.tri).sum())
+    t_err = float(((tb - tc).abs() / tc.abs().clamp_min(1e-30))[hit].max())
+    print(f"[bvh] earth {RES}x{RES} primary rays ({ro.x.numel()}): "
+          f"intersect_bvh {ms:.2f} ms, {launched} device kernels a call, "
+          f"against intersect_cluster (closest_kernel) {kms:.3f} ms; "
+          f"{int(hit.sum())} hits, identical ids {same} of {ro.x.numel()}, "
+          f"refined t max relative diff {t_err:.3e}  [{card}]")
+    assert same == ro.x.numel(), "bvh and cluster ids differ"
+    torch.testing.assert_close(tb[hit], tc[hit], rtol=1e-4, atol=1e-5)
+
+    outs = {}
+    for backend in ("bvh", "cluster"):
+        cfg = RenderConfig(width=RES, height=RES, ray_budget_frac=0.6,
+                           intersect_backend=backend, **GAZE_CFG)
+        st = pipeline.FrameState.initial(cam, cfg)
+        ci.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = pipeline.render_frame(earth, cam, (RES // 2, RES // 2), st,
+                                       cfg)
+        torch.cuda.synchronize()
+        outs[backend] = (out, ci.counters(),
+                         (time.perf_counter() - t0) * 1e3)
+    (b, cb, ms_b), (c, cc, ms_c) = outs["bvh"], outs["cluster"]
+    mae = float((b["image"] - c["image"]).abs().mean())
+    calls = {k: cb[k] for k in ("intersect_bvh", "occlusion_bvh")}
+    print(f"[bvh] earth {RES}x{RES} frame, intersect_backend bvh: {ms_b:.1f} "
+          f"ms, {json.dumps(calls)}, against cluster {ms_c:.1f} ms; mask "
+          f"equal {torch.equal(b['mask'], c['mask'])}, ray_count "
+          f"{int(b['ray_count'])} / {int(c['ray_count'])}, rays_traced "
+          f"{int(b['rays_traced'])} / {int(c['rays_traced'])}, image MAE "
+          f"{mae:.3e}  [{card}]")
+    assert calls["intersect_bvh"] > 0 and calls["occlusion_bvh"] > 0
+    for k in ("closest_hit", "occlusion", "closest_hit_stream",
+              "occlusion_stream", "closest_hit_plain", "occlusion_plain",
+              "intersect_brute", "occlusion_brute"):
+        assert cb[k] == 0, (k, cb)
+    assert torch.equal(b["mask"], c["mask"])
+    assert int(b["ray_count"]) == int(c["ray_count"])
+    assert mae < 5e-3
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
@@ -1729,14 +1965,14 @@ def main() -> int:
 
     # ---- main paths at full size ---------------------------------------------
     ph.start("main earth")
-    counts_e, cfg_e, steady_e = main_path("main earth", "earth", earth, cam,
-                                          card)
+    counts_e, cfg_e, steady_e, _ = main_path("main earth", "earth", earth,
+                                             cam, card)
     assert counts_e["closest_hit"] > 0 and counts_e["occlusion"] > 0
     assert counts_e["closest_hit_stream"] == 0 and \
         counts_e["occlusion_stream"] == 0
     ph.start("main city")
-    counts_c, cfg_c, steady_c = main_path("main city", "city", city, cam,
-                                          card)
+    counts_c, cfg_c, steady_c, _ = main_path("main city", "city", city, cam,
+                                             card)
     assert counts_c["closest_hit_stream"] > 0 and \
         counts_c["occlusion_stream"] > 0
     assert counts_c["closest_hit"] == 0 and counts_c["occlusion"] == 0
@@ -1849,6 +2085,31 @@ def main() -> int:
     ph.start("modes")
     modes(earth, cam, card)
     mode_goldens(earth, cam)
+
+    # ---- scenes from files, and the bvh backend ------------------------------
+    ph.start("assets build")
+    atmp = tempfile.mkdtemp(prefix="chip_smoke_assets_")
+    try:
+        files = assets_build(atmp, dev)
+        ph.start("main assets")
+        path, assets_sc = files["assets"]
+        file_scene_run("main assets", path, assets_sc, cam, card, atmp,
+                       route="")
+        ph.start("main city-obj")
+        file_scene_run("main city-obj", *files["city-obj"], cam, card, atmp,
+                       route="_stream")
+        ph.start("main spec")
+        file_scene_run("main spec", *files["spec"], cam, card, atmp,
+                       route="_stream")
+        ph.start("parity assets")
+        for name, (ro, rd, tmax) in ray_sets(assets_sc, cam, dev).items():
+            compare(f"assets {name}", assets_sc, ro, rd, 1e-3, tmax, dev,
+                    errs)
+        frame_parity("assets", assets_sc, cam)
+    finally:
+        shutil.rmtree(atmp, ignore_errors=True)
+    ph.start("bvh")
+    bvh_phase(earth, cam, card)
 
     # ---- the row-sharded frame, the train step, app/optimize ----------------
     from fovtrace_torch.dist import launch

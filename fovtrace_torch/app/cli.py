@@ -4,20 +4,25 @@ Run:  python -m fovtrace_torch.app.cli --device cuda --scene earth \\
           --width 1920 --height 1088 --frames 3
 
 `--scene` takes every scene of `scene.procedural.SCENES` (box, bunny,
-city, earth, multi, vokselia); city, the 170k-triangle scene, takes the
-streaming kernels.
+city, earth, multi, vokselia; city, the 170k-triangle scene, takes the
+streaming kernels), a Wavefront `.obj` file (with its MTL materials and
+map_Kd textures), a JSON multi-model spec (`scene.assets.scene_from_spec`)
+or a resource directory in the reference renderer's layout
+(`scene.assets.reference_assets_scene`).
 
-Renders a gaze trajectory through `render.pipeline.render_frame` and
-prints steady-state ms/frame and ray throughput. Every sampling mode
-(`--sampling`, also spelt `--sampling-mode`) and reconstruction of the
+Renders a gaze trajectory through `render.pipeline.render_frame` (with
+`--profile-stages`, `render.pipeline.render_frame_staged`: the same
+frame, each stage timed into the `--report` CSV; not with `--sharded`) and prints steady-state
+ms/frame and ray throughput. Every sampling mode (`--sampling`, also
+spelt `--sampling-mode`), reconstruction and intersection backend of the
 reference runs, and `--view saliency` writes the saliency heat map.
-What the port does not run yet (.obj / .json / asset-directory scenes)
-is refused with a message, never substituted.
+Frames are dumped as BMP (the default), PPM or npy.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -25,8 +30,9 @@ import time
 import numpy as np
 import torch
 
-from fovtrace_torch.config import RECONSTRUCTIONS, SAMPLING_MODES
-from fovtrace_torch.scene import procedural
+from fovtrace_torch.config import (INTERSECT_BACKENDS, RECONSTRUCTIONS,
+                                   SAMPLING_MODES)
+from fovtrace_torch.scene import image_io, procedural
 
 # --view -> output key; a view whose buffer the frame did not produce
 # (jfa under atrous, say) shows the image, as in the reference
@@ -42,8 +48,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:1, cpu)")
     p.add_argument("--scene", default="earth",
-                   help=f"one of {sorted(procedural.SCENES)} (.obj, .json "
-                        f"and asset-directory scenes are not ported)")
+                   help=f"one of {sorted(procedural.SCENES)}, a path to an "
+                        f".obj or a scene-spec .json, or a resource "
+                        f"directory")
     p.add_argument("--width", type=int, default=1024)
     p.add_argument("--height", type=int, default=1024)
     p.add_argument("--frames", type=int, default=16)
@@ -55,7 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sampling", "--sampling-mode", default="masked",
                    choices=SAMPLING_MODES)
     p.add_argument("--intersect-backend", default="auto",
-                   choices=["auto", "cluster", "brute"])
+                   choices=INTERSECT_BACKENDS)
     p.add_argument("--aperture", type=float, default=0.07)
     p.add_argument("--dof", action="store_true",
                    help="thin-lens depth of field with gaze autofocus")
@@ -72,22 +79,28 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="directory for frame dumps")
     p.add_argument("--save-every", type=int, default=0,
                    help="dump every Nth frame (0 = last frame only)")
-    p.add_argument("--format", default="ppm", choices=["ppm", "npy"])
+    p.add_argument("--format", default="bmp", choices=["bmp", "ppm", "npy"])
     p.add_argument("--report", default=None, help="per-frame CSV report path")
+    p.add_argument("--profile-stages", action="store_true",
+                   help="time each pipeline stage (a synchronise after "
+                        "each; columns GB, Sampling, Optimize, Shading, "
+                        "JFA, SI, PPI, AT in the --report CSV; not with "
+                        "--sharded)")
+    p.add_argument("--trace", default=None,
+                   help="directory for a torch.profiler trace of the run")
     p.add_argument("--sharded", action="store_true",
                    help="split the screen's rows over the ranks of the "
                         "process group (dist.launch: torchrun or the "
                         "FOVTRACE_* variables; one rank without them)")
+    p.add_argument("--seed-frame", type=int, default=0,
+                   help="accepted as the reference CLI accepts it; neither "
+                        "CLI reads it")
     return p
 
 
 def make_config(args):
     from fovtrace_torch.config import RenderConfig
 
-    if args.scene not in procedural.SCENES:
-        raise SystemExit(f"--scene {args.scene}: scene files and asset "
-                         f"directories are not ported to fovtrace_torch yet; "
-                         f"use one of {sorted(procedural.SCENES)}")
     sampling = "full" if args.no_optimize else args.sampling
     return RenderConfig(
         width=args.width, height=args.height, aperture=args.aperture,
@@ -101,9 +114,29 @@ def make_config(args):
 
 
 def load_scene(name: str, device, light_power: float = 810.0):
+    """A procedural scene by name, or a scene from files: an .obj, a
+    scene-spec .json, or a resource directory."""
+    from fovtrace_torch.scene import assets
     from fovtrace_torch.scene.scene import ParallelogramLight
 
-    scene = procedural.SCENES[name]("cpu")
+    if name in procedural.SCENES:
+        scene = procedural.SCENES[name]("cpu")
+    elif name == "reference":
+        raise SystemExit(
+            "--scene reference: give the reference renderer's resource "
+            "directory instead (CedarCity.hdr, grid.ppm, bunny/, "
+            "vokselia_spawn/); this package carries no fixed path to it")
+    elif os.path.isdir(name):
+        scene = assets.reference_assets_scene(name, device="cpu")
+    elif os.path.exists(name) and name.endswith(".obj"):
+        scene = assets.scene_from_obj(name, device="cpu")
+    elif os.path.exists(name) and name.endswith(".json"):
+        scene = assets.scene_from_spec(name, device="cpu")
+    else:
+        raise SystemExit(
+            f"unknown scene {name!r}; procedural: "
+            f"{sorted(procedural.SCENES)}, or a path to an .obj, a "
+            f"scene-spec .json or a resource directory")
     if light_power != 810.0:
         scene = scene.replace(light=ParallelogramLight.default(light_power))
     return scene.to(device)
@@ -127,21 +160,21 @@ def to_u8_image(view: str, out: dict) -> np.ndarray:
 
 
 def save_frame(path_base: str, fmt: str, img_u8: np.ndarray) -> str:
-    if fmt == "ppm":
-        path = path_base + ".ppm"
-        h, w = img_u8.shape[:2]
-        with open(path, "wb") as f:
-            f.write(f"P6\n{w} {h}\n255\n".encode())
-            f.write(np.ascontiguousarray(img_u8).tobytes())
-        return path
-    np.save(path_base + ".npy", img_u8)
-    return path_base + ".npy"
+    path = f"{path_base}.{fmt}"
+    if fmt == "bmp":
+        image_io.save_bmp(path, img_u8)
+    elif fmt == "ppm":
+        image_io.save_ppm(path, img_u8)
+    else:
+        np.save(path, img_u8)
+    return path
 
 
 def run(args, scene=None) -> dict:
-    """Render the trajectory. Returns the last frame's outputs and
-    per-frame lists: frame_ms (host clock around a frame that ends in a
-    device synchronise), ray_count, rays_traced, rays_dropped."""
+    """Render the trajectory. Returns the last frame's outputs, the
+    StageTimer and per-frame lists: frame_ms (host clock around a frame
+    that ends in a device synchronise), ray_count, rays_traced,
+    rays_dropped."""
     from fovtrace_torch.app import profiler, trajectory
     from fovtrace_torch.core.camera import Camera
     from fovtrace_torch.render import pipeline
@@ -152,6 +185,10 @@ def run(args, scene=None) -> dict:
                          "false")
     config = make_config(args)
     mesh = None
+    if args.sharded and args.profile_stages:
+        raise SystemExit("--profile-stages times render_frame's stages; "
+                         "the --sharded frame has none of its own: drop "
+                         "one of the two")
     if args.sharded:
         from fovtrace_torch.dist import launch
         from fovtrace_torch.dist import sharding as shd
@@ -165,57 +202,64 @@ def run(args, scene=None) -> dict:
                         device=device)
     gazes, poses = trajectory.make(args.gaze, args.height, args.width,
                                    args.frames)
+    timer = profiler.StageTimer()
     if mesh is None:
         state = pipeline.FrameState.initial(cam, config)
         render = pipeline.render_frame
+        if args.profile_stages:
+            render = lambda *a: pipeline.render_frame_staged(*a, timer)
         whole = lambda out: out
     else:
         state = shd.initial_state_sharded(cam, config, mesh)
         render = lambda *a: shd.render_sharded(*a, mesh)
         whole = lambda out: shd.gather_frame(out, mesh)
     writes = mesh is None or launch.is_coordinator()
-    timer = profiler.StageTimer()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
+    trace = (profiler.trace_profile(args.trace) if args.trace and writes
+             else contextlib.nullcontext())
+    tag = f"_a{args.aperture:.3f}"
 
     stats = {"frame_ms": [], "ray_count": [], "rays_traced": [],
              "rays_dropped": []}
     out = None
-    for f, gaze in enumerate(gazes):
-        if poses is not None:
-            eye, tgt = poses[f]
-            cam = Camera.create(eye=eye, target=tgt, device=device)
-        t0 = time.perf_counter()
-        out, state = render(scene, cam, gaze, state, config)
-        sync()
-        frame_ms = (time.perf_counter() - t0) * 1e3
-        rays = int(out["ray_count"])
-        stats["frame_ms"].append(frame_ms)
-        stats["ray_count"].append(rays)
-        stats["rays_traced"].append(int(out["rays_traced"]))
-        stats["rays_dropped"].append(int(out["rays_dropped"]))
-        timer.add("frame_ms", frame_ms)
-        timer.end_frame(extra={
-            "frame": float(f), "fps": 1000.0 / max(frame_ms, 1e-6),
-            "aperture": args.aperture, "ray_count": float(rays),
-            "rays_traced": float(stats["rays_traced"][-1]),
-            "ray_pct": 100.0 * rays / (args.width * args.height)})
-        if args.out and args.save_every and f % args.save_every == 0:
-            img = to_u8_image(args.view, whole(out))
-            if writes:
-                save_frame(os.path.join(args.out, f"frame_{f:04d}"),
-                           args.format, img)
+    with trace:
+        for f, gaze in enumerate(gazes):
+            if poses is not None:
+                eye, tgt = poses[f]
+                cam = Camera.create(eye=eye, target=tgt, device=device)
+            t0 = time.perf_counter()
+            out, state = render(scene, cam, gaze, state, config)
+            sync()
+            frame_ms = (time.perf_counter() - t0) * 1e3
+            rays = int(out["ray_count"])
+            stats["frame_ms"].append(frame_ms)
+            stats["ray_count"].append(rays)
+            stats["rays_traced"].append(int(out["rays_traced"]))
+            stats["rays_dropped"].append(int(out["rays_dropped"]))
+            timer.add("frame_ms", frame_ms)
+            timer.end_frame(extra={
+                "frame": float(f), "Total": frame_ms,
+                "fps": 1000.0 / max(frame_ms, 1e-6),
+                "aperture": args.aperture, "ray_count": float(rays),
+                "rays_traced": float(stats["rays_traced"][-1]),
+                "ray_pct": 100.0 * rays / (args.width * args.height)})
+            if args.out and args.save_every and f % args.save_every == 0:
+                img = to_u8_image(args.view, whole(out))
+                if writes:
+                    save_frame(os.path.join(args.out, f"frame_{f:04d}{tag}"),
+                               args.format, img)
     if args.out and out is not None:
         img = to_u8_image(args.view, whole(out))
         if writes:
-            p = save_frame(os.path.join(args.out, "frame_final"),
+            p = save_frame(os.path.join(args.out, f"frame_final{tag}"),
                            args.format, img)
             print(f"[fovtrace_torch] wrote {p}", file=sys.stderr)
     if args.report and writes:
         timer.write_csv(args.report)
-    stats.update(out=out, config=config, state=state, mesh=mesh)
+    stats.update(out=out, config=config, state=state, mesh=mesh, timer=timer)
     return stats
 
 
@@ -235,6 +279,9 @@ def main(argv=None) -> int:
           f"{mean_ms:.2f} ms/frame | {rays:.0f} rays traced/frame "
           f"({rays / mean_ms / 1e3:.2f} Mrays/s) | rays dropped "
           f"{max(stats['rays_dropped'])}", file=sys.stderr)
+    if args.profile_stages:
+        print(f"[fovtrace_torch] stage means: {stats['timer'].summary()}",
+              file=sys.stderr)
     return 0
 
 

@@ -18,7 +18,7 @@ import torch
 
 SAMPLING_MODES = ("masked", "weier", "author", "logpolar", "full")
 RECONSTRUCTIONS = ("jfa", "sibson", "pullpush", "atrous", "all", "none")
-INTERSECT_BACKENDS = ("auto", "cluster", "brute")
+INTERSECT_BACKENDS = ("auto", "cluster", "brute", "bvh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +68,7 @@ class RenderConfig:
     atrous_p_phi: float = 0.5
     sibson_max_radius: int = 16     # bound on the Sibson disc, pixels
 
-    intersect_backend: str = "auto"   # "auto" | "cluster" | "brute"
+    intersect_backend: str = "auto"   # "auto" | "cluster" | "brute" | "bvh"
 
     # recompute each shade bounce in the backward pass instead of keeping
     # its intermediates (torch.utils.checkpoint): less memory, a second

@@ -169,6 +169,29 @@ class Camera:
     def inv_mvp(self, aspect: float) -> torch.Tensor:
         return inv4(self.mvp(aspect))
 
+    # --- pose helpers ---------------------------------------------------
+    def translate(self, delta) -> "Camera":
+        d = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
+        return self.replace(eye=self.eye + d, target=self.target + d)
+
+    def rotate(self, angle, axis) -> "Camera":
+        """Turn the view direction about the eye."""
+        q = mathx.quat_from_axis_angle(
+            torch.as_tensor(axis, dtype=torch.float32, device=self.device),
+            angle)
+        return self.replace(
+            target=mathx.quat_rotate(q, self.target - self.eye) + self.eye,
+            up=mathx.quat_rotate(q, self.up))
+
+    def rotate_around(self, center, angle, axis) -> "Camera":
+        """Orbit the eye about `center`."""
+        c = torch.as_tensor(center, dtype=torch.float32, device=self.device)
+        q = mathx.quat_from_axis_angle(
+            torch.as_tensor(axis, dtype=torch.float32, device=self.device),
+            angle)
+        return self.replace(eye=mathx.quat_rotate(q, self.eye - c) + c,
+                            up=mathx.quat_rotate(q, self.up))
+
     # --- thin-lens depth of field ----------------------------------------
     def basis(self):
         """(view, right, up) camera frame."""

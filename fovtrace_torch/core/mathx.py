@@ -1,8 +1,9 @@
 """Row-layout vector helpers (counterpart of `fovtrace/core/mathx.py`).
 
-Only what the frame uses: the camera basis, the NaN-free reciprocal the
+What the frame uses: the camera basis, the NaN-free reciprocal the
 accumulation and reconstruction stages divide by, a correctly rounded
-float32 square root and a fused multiply-add.
+float32 square root and a fused multiply-add; and the quaternions of the
+camera's pose helpers.
 """
 
 from __future__ import annotations
@@ -57,3 +58,31 @@ def fma(x, y, z) -> torch.Tensor:
     d = lambda a: (a.double() if isinstance(a, torch.Tensor)
                    else float(np.float32(a)))
     return (d(x) * d(y) + d(z)).float()
+
+
+# --- quaternions [w, x, y, z] (the camera's rotate / rotate_around)
+def quat_from_axis_angle(axis, angle) -> torch.Tensor:
+    """Unit quaternion for a rotation of `angle` radians about `axis`."""
+    axis = torch.as_tensor(axis, dtype=torch.float32)
+    axis = normalize(axis)
+    half = torch.as_tensor(angle, dtype=torch.float32,
+                           device=axis.device) * 0.5
+    return torch.cat([torch.cos(half)[None], torch.sin(half) * axis])
+
+
+def quat_mul(q1, q2) -> torch.Tensor:
+    w1, x1, y1, z1 = q1[0], q1[1], q1[2], q1[3]
+    w2, x2, y2, z2 = q2[0], q2[1], q2[2], q2[3]
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ])
+
+
+def quat_rotate(q, v) -> torch.Tensor:
+    """Vector(s) v [..., 3] rotated by the unit quaternion q."""
+    qv = q[1:4].expand_as(v)
+    t = 2.0 * cross(qv, v)
+    return v + q[0] * t + cross(qv, t)

@@ -52,3 +52,12 @@ def history_from_fetch(fetched, is_valid):
     h, w = is_valid.shape
     planes = fetched[:, :4].T.reshape(4, h, w)
     return torch.where((is_valid > 0.0)[None], planes, 0.0)
+
+
+def fetch_history(history_cache, qy, qx, is_valid):
+    """History alone at the reprojected pixels, zero where invalid:
+    [4, H, W] from history_cache [4, H, W] (validate_cache's combined
+    fetch serves the frame)."""
+    ok = is_valid > 0.0
+    f = history_cache.permute(1, 2, 0)[qy, qx]
+    return torch.where(ok[None], f.permute(2, 0, 1), 0.0)

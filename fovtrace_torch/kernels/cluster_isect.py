@@ -701,7 +701,8 @@ def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None, *,
 
 COUNTED = ("closest_hit", "occlusion", "closest_hit_stream",
            "occlusion_stream", "closest_hit_plain", "occlusion_plain",
-           "intersect_brute", "occlusion_brute")
+           "intersect_brute", "occlusion_brute", "intersect_bvh",
+           "occlusion_bvh")
 
 
 def reset_counters() -> None:
@@ -710,7 +711,8 @@ def reset_counters() -> None:
 
 
 def counters() -> dict:
-    """Kernel launches and plain-version / brute-oracle calls so far."""
+    """Kernel launches and plain-version / brute-oracle / bvh-traversal
+    calls so far."""
     return {k: kernels.CALLS[k] for k in COUNTED}
 
 

@@ -7,6 +7,8 @@ Backends, chosen by `RenderConfig.intersect_backend`:
            on CUDA tensors, their plain versions on CPU tensors
   brute    `intersect_brute` / `occlusion_brute`: every ray against
            every triangle, the oracle the kernels are tested against
+  bvh      `kernels.bvh_traverse`: packets of rays down the scene's BVH
+           (plain PyTorch, as the reference's is XLA)
 
 Traversal results are discrete and come back detached (the counterpart
 of the reference's stop_gradient); `refine_hit_v` then recomputes
@@ -161,13 +163,19 @@ def _pick_backend(backend: str) -> str:
 
 
 def _raw_hit(scene, ro: Vec3, rd: Vec3, t_min, t_max, backend: str) -> Hit:
-    """Closest hit, detached: cluster kernels or the brute oracle."""
+    """Closest hit, detached: cluster kernels, the BVH traversal or the
+    brute oracle."""
     d = lambda v: v.map(torch.Tensor.detach)
-    if _pick_backend(backend) == "cluster":
+    backend = _pick_backend(backend)
+    if backend == "cluster":
         from fovtrace_torch.kernels import cluster_isect
 
         return cluster_isect.intersect_cluster(scene, d(ro), d(rd), t_min,
                                                t_max)
+    if backend == "bvh":
+        from fovtrace_torch.kernels import bvh_traverse
+
+        return bvh_traverse.intersect_bvh(scene, d(ro), d(rd), t_min, t_max)
     return intersect_brute(scene, d(ro), d(rd), t_min, t_max)
 
 
@@ -204,11 +212,16 @@ def occlusion_v(scene, ro: Vec3, rd: Vec3, t_min, t_max,
     """Shadow-attenuation dispatcher (visibility is locally constant, so
     the result is detached)."""
     d = lambda v: v.map(torch.Tensor.detach)
-    if _pick_backend(backend) == "cluster":
+    backend = _pick_backend(backend)
+    if backend == "cluster":
         from fovtrace_torch.kernels import cluster_isect
 
         return cluster_isect.occlusion_cluster(scene, d(ro), d(rd), t_min,
                                                t_max)
+    if backend == "bvh":
+        from fovtrace_torch.kernels import bvh_traverse
+
+        return bvh_traverse.occlusion_bvh(scene, d(ro), d(rd), t_min, t_max)
     return occlusion_brute(scene, d(ro), d(rd), t_min, t_max)
 
 

@@ -11,10 +11,14 @@
 
 Frame-to-frame state is an explicit `FrameState`. Counters come back as
 device tensors; nothing in a frame waits for the device.
+`render_frame_staged` (also `render.staged`'s, the reference's module)
+runs the same frame with each stage timed (`app.profiler.StageTimer.stage`, named as the reference's report
+columns GB, Sampling, Optimize, Shading, JFA, SI, PPI, AT).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Tuple
 
@@ -58,6 +62,12 @@ class FrameState:
                 for f in dataclasses.fields(cam)
                 if isinstance(getattr(cam, f.name), torch.Tensor)}),
             frame=self.frame)
+
+
+def untimed(name: str):
+    """The stage context of an untimed frame: it times nothing and waits
+    for nothing."""
+    return contextlib.nullcontext({})
 
 
 def stage_gbuffer(scene, camera, prev_camera, config: RenderConfig):
@@ -200,10 +210,11 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
 
 
 def stage_reconstruct(shading_rgb: Vec3, shading_alpha, gbuf,
-                      config: RenderConfig):
+                      config: RenderConfig, stage=untimed):
     """JFA and Sibson, or pull-push then A-Trous, or all four (the image
     is then A-Trous'), or none. Returns (image rgb, image alpha, extras
-    for the full outputs)."""
+    for the full outputs). Each filter runs in its `stage` context (JFA,
+    SI, PPI, AT)."""
     recon = config.reconstruction
     extras: Dict[str, torch.Tensor] = {}
     if recon == "none":
@@ -212,25 +223,30 @@ def stage_reconstruct(shading_rgb: Vec3, shading_alpha, gbuf,
     if recon in ("jfa", "sibson", "all"):
         sh_rows = torch.cat([vec.to_rows(shading_rgb),
                              shading_alpha[..., None]], dim=-1)
-        coord, jfa_color = jfa.jump_flood(sh_rows)
+        with stage("JFA") as box:
+            box["result"] = coord, jfa_color = jfa.jump_flood(sh_rows)
         extras["jfa"] = jfa_color
         out_rgb, out_a = vec.from_rows(jfa_color[..., :3]), jfa_color[..., 3]
         if recon in ("sibson", "all"):
-            sib = sibson.sibson_interpolate(coord, jfa_color,
-                                            config.sibson_max_radius)
+            with stage("SI") as box:
+                box["result"] = sib = sibson.sibson_interpolate(
+                    coord, jfa_color, config.sibson_max_radius)
             extras["sibson"] = sib
             out_rgb, out_a = vec.from_rows(sib[..., :3]), sib[..., 3]
     if recon in ("pullpush", "atrous", "all"):
-        pp_rgb, pp_a = pullpush.pull_push_v(shading_rgb, shading_alpha)
+        with stage("PPI") as box:
+            box["result"] = pp_rgb, pp_a = pullpush.pull_push_v(
+                shading_rgb, shading_alpha)
         if config.full_outputs:
             extras["pullpush"] = torch.cat([vec.to_rows(pp_rgb),
                                             pp_a[..., None]], dim=-1)
         out_rgb, out_a = pp_rgb, pp_a
         if recon in ("atrous", "all"):
-            at = atrous.atrous_denoise_v(
-                pp_rgb, gbuf["position"], gbuf["normal"],
-                config.atrous_iterations, config.atrous_c_phi,
-                config.atrous_n_phi, config.atrous_p_phi)
+            with stage("AT") as box:
+                box["result"] = at = atrous.atrous_denoise_v(
+                    pp_rgb, gbuf["position"], gbuf["normal"],
+                    config.atrous_iterations, config.atrous_c_phi,
+                    config.atrous_n_phi, config.atrous_p_phi)
             if config.full_outputs:
                 extras["atrous"] = torch.cat([vec.to_rows(at),
                                               pp_a[..., None]], dim=-1)
@@ -248,18 +264,36 @@ def render_frame(scene, camera: Camera, gaze_px, state: FrameState,
     pixels that found no compaction slot) and rays_traced (primary +
     shadow + every wavefront ray); with config.full_outputs also the
     row-layout view buffers."""
+    return render_frame_staged(scene, camera, gaze_px, state, config)
+
+
+def render_frame_staged(scene, camera: Camera, gaze_px, state: FrameState,
+                        config: RenderConfig, timer=None
+                        ) -> Tuple[Dict[str, torch.Tensor], FrameState]:
+    """render_frame with each stage (GB, Sampling, Optimize, Shading,
+    then stage_reconstruct's) run in `timer.stage(name)`
+    (`app.profiler.StageTimer`), which waits for the result the stage
+    leaves in the context's dict under "result"; with no timer, nothing
+    is timed or waited for. The outputs and new state are the same
+    either way."""
+    stage = untimed if timer is None else timer.stage
     pin_fp32(camera.device)
     gaze_px = (int(gaze_px[0]), int(gaze_px[1]))
-    h, w = config.height, config.width
-    gbuf = stage_gbuffer(scene, camera, state.prev_camera, config)
-    mask, sal, is_valid, fetched, gaze_target, ray_count = stage_sampling(
-        scene, gbuf, gaze_px, state, config)
-    idx, active, rank, gate = stage_compact(mask, config)
-    (shading_rgb, shading_alpha), history, traced_mask, shade_rays = \
-        stage_shade(scene, camera, idx, active, fetched, is_valid, state,
-                    config, gaze_target, rank, gate)
+    with stage("GB") as box:
+        box["result"] = gbuf = stage_gbuffer(scene, camera,
+                                             state.prev_camera, config)
+    with stage("Sampling") as box:
+        box["result"] = mask, sal, is_valid, fetched, gaze_target, \
+            ray_count = stage_sampling(scene, gbuf, gaze_px, state, config)
+    with stage("Optimize") as box:
+        box["result"] = idx, active, rank, gate = stage_compact(mask, config)
+    with stage("Shading") as box:
+        box["result"] = (shading_rgb, shading_alpha), history, traced_mask, \
+            shade_rays = stage_shade(scene, camera, idx, active, fetched,
+                                     is_valid, state, config, gaze_target,
+                                     rank, gate)
     image_rgb, image_alpha, extras = stage_reconstruct(
-        shading_rgb, shading_alpha, gbuf, config)
+        shading_rgb, shading_alpha, gbuf, config, stage)
 
     outputs: Dict[str, torch.Tensor] = {
         "image_rgb": image_rgb,

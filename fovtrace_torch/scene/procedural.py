@@ -224,16 +224,20 @@ def vokselia_scene(device="cuda", extent: int = 6) -> Scene:
                       _mesh(voxel_world(extent=extent), 1)], device)
 
 
+def city_meshes() -> list:
+    """The city scene's meshes: ground, a 64x64-column voxel city, the
+    earth scene's sphere (raised) and box."""
+    return [_mesh(plane(40.0, 0.0), 0), _mesh(voxel_world(extent=32), 1),
+            _mesh(uv_sphere(0.8, (0.0, 2.2, 0.0), lat=48, lon=96), 2),
+            _mesh(box((0.8, 0.8, 0.8), (-2.0, 0.4, 1.2)), 3)]
+
+
 def city_scene(device="cuda") -> Scene:
-    """The large scene: a 64x64-column voxel city with the earth scene's
-    sphere and box, 170,368 triangles after padding, 1,332 clusters of
-    128. Its pack is far over the 4 MiB residency threshold, so it takes
-    the streaming kernels with two clusters per schedule entry."""
-    return _assemble([_mesh(plane(40.0, 0.0), 0),
-                      _mesh(voxel_world(extent=32), 1),
-                      _mesh(uv_sphere(0.8, (0.0, 2.2, 0.0), lat=48, lon=96), 2),
-                      _mesh(box((0.8, 0.8, 0.8), (-2.0, 0.4, 1.2)), 3)],
-                     device)
+    """The large scene (`city_meshes`), 170,368 triangles after padding,
+    1,332 clusters of 128. Its pack is far over the 4 MiB residency
+    threshold, so it takes the streaming kernels with two clusters per
+    schedule entry."""
+    return _assemble(city_meshes(), device)
 
 
 SCENES = {"box": box_scene, "bunny": bunny_scene, "earth": earth_scene,

@@ -197,6 +197,10 @@ class Scene:
     def device(self) -> torch.device:
         return self.v0.device
 
+    @property
+    def has_bvh(self) -> bool:
+        return self.bvh_nodes_min is not None
+
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
 
@@ -321,3 +325,12 @@ def merge_meshes(meshes):
            if all(u is not None for u in all_uv) else None)
     return (np.concatenate(all_v, axis=0), np.concatenate(all_t, axis=0),
             np.concatenate(all_m, axis=0), normals, uvs)
+
+
+def transform_vertices(vertices, matrix) -> np.ndarray:
+    """A 4x4 transform applied to [V,3] vertices (the host-side bake)."""
+    v = np.asarray(vertices, np.float32)
+    m = np.asarray(matrix, np.float32)
+    vh = np.concatenate([v, np.ones((v.shape[0], 1), np.float32)], axis=1)
+    out = vh @ m.T
+    return out[:, :3] / out[:, 3:4]

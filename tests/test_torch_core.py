@@ -1,5 +1,7 @@
 """Parity of fovtrace_torch.core with the JAX reference on seeded inputs:
-the RNG bit-exact, camera rays / reprojection / tone map at rtol 1e-5."""
+the RNG bit-exact, camera rays / reprojection / tone map at rtol 1e-5,
+the quaternions and the camera's pose helpers at atol 1e-6, the history
+fetch bit for bit."""
 
 import numpy as np
 import pytest
@@ -10,10 +12,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from fovtrace import Camera as JCamera  # noqa: E402
 from fovtrace.core import color as jcolor  # noqa: E402
+from fovtrace.core import mathx as jmathx  # noqa: E402
 from fovtrace.core import reproject as jreproject  # noqa: E402
 from fovtrace.core import rng as jrng  # noqa: E402
 from fovtrace.core import vec as jvec  # noqa: E402
-from fovtrace_torch.core import color, reproject, rng, vec  # noqa: E402
+from fovtrace_torch.core import color, mathx, reproject, rng, vec  # noqa: E402
 from fovtrace_torch.core.camera import Camera  # noqa: E402
 
 POSES = [((3.0, 2.5, 4.0), (0.0, 0.8, 0.0)), ((-1.5, 0.7, 2.2), (0.3, 0.4, -0.2))]
@@ -134,3 +137,55 @@ def test_validate_cache_and_history():
     np.testing.assert_array_equal(
         reproject.history_from_fetch(ft, vt).numpy(),
         np.asarray(jreproject.history_from_fetch(fj, jnp.asarray(vt.numpy()))))
+
+
+def test_quaternions():
+    r = np.random.default_rng(8)
+    for _ in range(4):
+        axis = r.normal(size=3).astype(np.float32)
+        angle = float(r.uniform(-4.0, 4.0))
+        v = r.normal(size=(5, 3)).astype(np.float32)
+        jq = jmathx.quat_from_axis_angle(jnp.asarray(axis), angle)
+        q = mathx.quat_from_axis_angle(torch.as_tensor(axis), angle)
+        np.testing.assert_allclose(q.numpy(), np.asarray(jq), atol=1e-6)
+        np.testing.assert_allclose(
+            mathx.quat_rotate(q, torch.as_tensor(v)).numpy(),
+            np.asarray(jmathx.quat_rotate(jq, jnp.asarray(v))), atol=1e-6)
+        np.testing.assert_allclose(mathx.quat_mul(q, q.flip(0)).numpy(),
+                                   np.asarray(jmathx.quat_mul(jq, jq[::-1])),
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("pose", POSES)
+def test_camera_pose_helpers(pose):
+    """translate, rotate and rotate_around against the reference's; an
+    orbit by 2 pi returns the camera (tests/test_core.py)."""
+    eye, target = pose
+    jc = JCamera.create(eye=eye, target=target)
+    c = Camera.create(eye=eye, target=target, device="cpu")
+    cases = [(lambda k: k.translate((0.5, -0.25, 1.0))),
+             (lambda k: k.rotate(0.6, (0.0, 1.0, 0.0))),
+             (lambda k: k.rotate(-1.1, (1.0, 0.5, -0.2))),
+             (lambda k: k.rotate_around((0.0, 1.0, 0.0), 2.2, (0.0, 1.0, 0.3)))]
+    for f in cases:
+        got, want = f(c), f(jc)
+        for k in ("eye", "target", "up"):
+            np.testing.assert_allclose(getattr(got, k).numpy(),
+                                       np.asarray(getattr(want, k)),
+                                       atol=1e-6, err_msg=k)
+    full = c.rotate_around((0.0, 2.0, 0.0), 2.0 * np.pi, (0.0, 1.0, 0.0))
+    np.testing.assert_allclose(full.eye.numpy(), c.eye.numpy(), atol=1e-5)
+
+
+def test_fetch_history():
+    h, w = 12, 20
+    r = np.random.default_rng(9)
+    hist = r.random((4, h, w)).astype(np.float32)
+    qy = r.integers(0, h, (h, w))
+    qx = r.integers(0, w, (h, w))
+    valid = (r.random((h, w)) > 0.3).astype(np.float32)
+    want = jreproject.fetch_history(jnp.asarray(hist), jnp.asarray(qy),
+                                    jnp.asarray(qx), jnp.asarray(valid))
+    got = reproject.fetch_history(torch.as_tensor(hist), torch.as_tensor(qy),
+                                  torch.as_tensor(qx), torch.as_tensor(valid))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

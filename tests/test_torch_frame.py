@@ -15,6 +15,8 @@ from fovtrace_torch.kernels import cluster_isect as ci
 from fovtrace_torch.render import pipeline
 from fovtrace_torch.scene import procedural
 
+import torch_asset_files as taf
+
 SIZE = 64
 KW = dict(width=SIZE, height=SIZE, reconstruction="atrous", max_depth=3,
           diffuse_max_depth=1, ray_budget_frac=0.6)
@@ -141,18 +143,115 @@ def test_cli_renders_and_reports(tmp_path):
                    "--out", str(tmp_path), "--format", "npy",
                    "--report", str(report)])
     assert rc == 0
-    img = np.load(tmp_path / "frame_final.npy")
+    img = np.load(tmp_path / "frame_final_a0.070.npy")
     assert img.shape == (32, 32, 3) and img.dtype == np.uint8
     assert 0 < img.mean() < 255
     lines = report.read_text().splitlines()
     assert len(lines) == 3 and "rays_traced" in lines[0]
 
 
-@pytest.mark.parametrize("flag", [["--scene", "model.obj"],
-                                  ["--scene", "scene_spec.json"]])
-def test_cli_refuses_unported_options(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--device", "cpu", "--frames", "1", *flag])
+def _scene_file(kind, root):
+    if kind == "obj":
+        return os.path.join(os.path.dirname(GOLDEN), os.pardir, "data",
+                            "checker_quad.obj")
+    taf.write_resource_dir(root)
+    if kind == "resources":
+        return root
+    m = procedural._mesh
+    tex = taf.write_mesh_scene(root, [m(procedural.plane(3.0, 0.0), 0)],
+                               "ground", textured=True)
+    ball = taf.write_mesh_scene(
+        root, [m(procedural.icosphere(0.4, (0.0, 0.0, 0.0), subdiv=1), 0)],
+        "ball", textured=False)
+    return taf.write_spec(root, tex, ball, os.path.join(root, "CedarCity.hdr"))
+
+
+@pytest.mark.parametrize("kind", ["obj", "spec", "resources"])
+def test_cli_renders_scene_files(tmp_path, kind):
+    """--scene with an .obj, a scene-spec .json and a resource directory
+    at 32x32: a BMP dump that load_bmp reads back as the frame's buffer,
+    and --profile-stages' columns in the --report CSV."""
+    from fovtrace_torch.scene import image_io
+
+    report = tmp_path / "report.csv"
+    args = cli.build_argparser().parse_args([
+        "--device", "cpu", "--scene", _scene_file(kind, str(tmp_path)),
+        "--width", "32", "--height", "32", "--frames", "2", "--max-depth",
+        "2", "--out", str(tmp_path / "out"), "--profile-stages", "--report",
+        str(report), "--save-every", "1"])
+    assert args.format == "bmp"
+    stats = cli.run(args)
+    want = cli.to_u8_image("image", stats["out"])
+    assert 0 < want.mean() < 255
+    got = image_io.load_bmp(str(tmp_path / "out" / "frame_final_a0.070.bmp"))
+    np.testing.assert_array_equal(got, want / np.float32(255.0))
+    assert sorted(os.listdir(tmp_path / "out")) == [
+        "frame_0000_a0.070.bmp", "frame_0001_a0.070.bmp",
+        "frame_final_a0.070.bmp"]
+    header, *rows = report.read_text().splitlines()
+    cols = header.split(",")
+    assert cols[:6] == ["GB", "Sampling", "Optimize", "Shading", "PPI", "AT"]
+    assert "Total" in cols and len(rows) == 2
+    assert max(stats["rays_dropped"]) == 0
+
+
+def test_cli_trace_and_seed_frame(tmp_path):
+    """--trace writes a torch.profiler Chrome trace of the run;
+    --seed-frame is accepted (and, as in the reference, not read)."""
+    rc = cli.main(["--device", "cpu", "--scene", "box", "--width", "16",
+                   "--height", "16", "--frames", "1", "--max-depth", "1",
+                   "--seed-frame", "3", "--trace", str(tmp_path / "tr"),
+                   "--intersect-backend", "bvh"])
+    assert rc == 0
+    traces = os.listdir(tmp_path / "tr")
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    assert (tmp_path / "tr" / traces[0]).stat().st_size > 1000
+
+
+def test_cli_refuses_the_reference_shortcut():
+    with pytest.raises(SystemExit, match="resource directory"):
+        cli.main(["--device", "cpu", "--frames", "1", "--scene",
+                  "reference"])
+
+
+def test_cli_refuses_profile_stages_when_sharded():
+    """The sharded frame has no stages of its own to time: the CLI says
+    so rather than write a report without stage columns."""
+    with pytest.raises(SystemExit, match="--profile-stages"):
+        cli.main(["--device", "cpu", "--frames", "1", "--scene", "box",
+                  "--sharded", "--profile-stages"])
+
+
+def test_staged_frame_is_render_frame(earth_cpu):
+    """render_frame_staged's outputs and new state equal render_frame's
+    bit for bit; its timer holds every stage the configuration runs."""
+    from fovtrace_torch.app.profiler import StageTimer
+    from fovtrace_torch.render import staged
+
+    cfg = RenderConfig(width=32, height=32, max_depth=2,
+                       reconstruction="all")
+    cam = Camera.create(eye=EYE, target=TARGET, device="cpu")
+    st_a = st_b = pipeline.FrameState.initial(cam, cfg)
+    timer = StageTimer()
+    for gaze in ((16, 16), (10, 20)):
+        a, st_a = pipeline.render_frame(earth_cpu, cam, gaze, st_a, cfg)
+        b, st_b = staged.render_frame_staged(earth_cpu, cam, gaze, st_b, cfg,
+                                             timer)
+        assert a.keys() == b.keys()
+        for k in a:
+            x, y = a[k], b[k]
+            for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+                torch.testing.assert_close(u, v, rtol=0, atol=0, msg=k)
+        for k in ("history", "depth_cache", "frame"):
+            torch.testing.assert_close(getattr(st_a, k), getattr(st_b, k),
+                                       rtol=0, atol=0)
+        timer.end_frame()
+    means = timer.means()
+    assert list(means) == ["GB", "Sampling", "Optimize", "Shading", "JFA",
+                           "SI", "PPI", "AT"]
+    assert timer.counts["GB"] == 2 and all(v >= 0 for v in means.values())
+    assert timer.csv_header().split(",") == list(means)
+    assert "GB=" in timer.summary()
 
 
 # ------------------------------------------- full outputs and the color maps
@@ -199,7 +298,7 @@ def test_cli_view_saliency_writes_heatmap(tmp_path):
         "32", "--frames", "1", "--max-depth", "2", "--view", "saliency",
         "--out", str(tmp_path), "--format", "npy"])
     stats = cli.run(args)
-    img = np.load(tmp_path / "frame_final.npy")
+    img = np.load(tmp_path / "frame_final_a0.070.npy")
     want = color.heatmap(stats["out"]["saliency"]).numpy()
     want = (np.clip(want, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     np.testing.assert_array_equal(img, want)
