@@ -117,6 +117,17 @@ non-zero):
                  within rtol 1e-4 / atol 1e-5), its time and device
                  launches; a 256x256 frame with intersect_backend bvh
                  against the cluster route's (mask, counts, image MAE)
+  quality        scripts.quality_eval's --quick rows at 960x544 (20
+                 frames of the fixed centre gaze, 8 of warm-up): masked x
+                 pullpush and x atrous against the full-sampling ground
+                 truth; 0 rays dropped, the rows and ray % beside the CPU's
+                 12.95%, launches, masked x pullpush's fovea at 99.0 dB
+  sweep          scripts.aperture_sweep's six apertures at 1920x1088, 3
+                 timed frames each: ray %, ms/frame, Mrays/s, launches
+  scaling        scripts.scaling_bench: one NCCL rank at 1920x1088, one
+                 and two gloo ranks sharing the card at 256x256 (rank
+                 processes of the script): ms/frame, Mrays/s, efficiency,
+                 rank 0's launches
   dist 1-rank    an NCCL process group of one; the bench frame through
                  dist.sharding.render_sharded (rows in scanline order) and
                  through render_frame, in turns, 3 circle-gaze frames: the
@@ -1271,6 +1282,122 @@ def mode_goldens(earth, cam):
         assert err.mean() < 5e-3 and err.max() < 0.1, name
 
 
+# ---- what foveation buys: the quality harness, the sweep, the scaling bench
+QUALITY_W, QUALITY_H = 960, 544   # scripts/quality_eval.py's defaults
+QUALITY_FRAMES, QUALITY_WARMUP = 20, 8
+# the masked frame's ray % at that configuration from the port's plain
+# versions on a CPU (fixed centre gaze, aperture 0.07, two frames; the
+# JAX reference's masks are the same bit for bit)
+CPU_RAY_PCT = 12.95
+PATH_PLAIN = ("closest_hit_plain", "occlusion_plain", "intersect_brute",
+              "occlusion_brute", "intersect_bvh", "occlusion_bvh")
+
+
+def path_launches(label, counts, kernels=("closest_hit", "occlusion")):
+    """Print a path's counts; fail unless each of `kernels` launched and
+    no plain version, brute oracle or bvh traversal ran."""
+    print(f"[{label}] counts during the run: "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for k in kernels:
+        assert counts.get(k, 0) > 0, (label, k, counts)
+    for k in PATH_PLAIN:
+        assert counts.get(k, 0) == 0, (label, k, counts)
+
+
+def quality_phase(earth, cam, card):
+    """quality_eval's --quick rows at its full size: masked x {pullpush,
+    atrous} against the full-sampling ground truth, 20 frames of the
+    fixed centre gaze, 8 of warm-up. No ray dropped (quality_rows
+    raises), and masked x pullpush's fovea at 99.0 dB: every fovea pixel
+    bit for bit the ground truth's."""
+    from fovtrace_torch.app import trajectory
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.scripts import quality_eval as qe
+
+    w, h = QUALITY_W, QUALITY_H
+    gazes, _ = trajectory.make("fixed", h, w, QUALITY_FRAMES)
+    base = dict(width=w, height=h, max_depth=4, diffuse_max_depth=1,
+                aperture=0.07, ray_budget_frac=0.55, full_outputs=False)
+    torch.cuda.synchronize()
+    ci.reset_counters()
+    t0 = time.perf_counter()
+    rows = qe.quality_rows(earth, cam, gazes, base, qe.QUICK_MODES,
+                           qe.QUICK_RECONS, QUALITY_WARMUP, DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    path_launches("quality", ci.counters())
+    for r in rows:
+        print(f"[quality] {json.dumps(r)}")
+        print(f"[quality] {r['mode']} x {r['recon']}: ray % "
+              f"{r['ray_pct']:.4f} on the card, {CPU_RAY_PCT} on a CPU "
+              f"(plain versions)  [{card}]")
+        assert all(np.isfinite(v) for k, v in r.items()
+                   if k not in ("mode", "recon")), r
+    print(f"[quality] {QUALITY_FRAMES} ground-truth frames and "
+          f"{len(rows)} x {QUALITY_FRAMES} foveated frames at {w}x{h} with "
+          f"their metrics: {secs:.2f} s  [{card}]")
+    pp = {r["recon"]: r for r in rows}["pullpush"]
+    # the fovea pixel by pixel: the two runs again, every frame compared
+    from fovtrace_torch.config import RenderConfig
+
+    gt, _ = qe.render_run(earth, cam, gazes, RenderConfig(
+        **{**base, "ray_budget_frac": 1.0}, sampling_mode="full",
+        reconstruction="none"))
+    fov, _ = qe.render_run(earth, cam, gazes, RenderConfig(
+        **base, sampling_mode="masked", reconstruction="pullpush"))
+    fovea = qe.annulus_masks(h, w, gazes[0], base["aperture"], DEVICE)[0]
+    differ = [int(((a.clamp(0, 1) != b.clamp(0, 1)).any(-1) & fovea).sum())
+              for a, b in zip(fov, gt)]
+    worst = max(float(((a.clamp(0, 1) - b.clamp(0, 1)).abs().amax(-1)
+                       * fovea).max()) for a, b in zip(fov, gt))
+    print(f"[quality] masked x pullpush: fovea {pp['psnr_fovea']} dB over "
+          f"frames {QUALITY_WARMUP}-{QUALITY_FRAMES - 1}; of its "
+          f"{int(fovea.sum())} pixels, those that differ from the ground "
+          f"truth in frames 0-{QUALITY_FRAMES - 1}: {differ} (largest "
+          f"difference {worst:.3e})")
+    assert pp["psnr_fovea"] == 99.0, pp
+
+
+def sweep_phase(earth, cam, card):
+    """aperture_sweep's six apertures at W x H, 3 timed frames each."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.scripts import aperture_sweep as sw
+
+    torch.cuda.synchronize()
+    ci.reset_counters()
+    rows = sw.sweep_rows(earth, cam, W, H, sw.APERTURES, iters=3)
+    torch.cuda.synchronize()
+    path_launches("sweep", ci.counters())
+    for r in rows:
+        print(f"[sweep] {json.dumps(r)}  [{card}]")
+        assert r["rays_traced"] > 0 and np.isfinite(r["frame_ms"]), r
+    pct = [r["ray_pct"] for r in rows]
+    assert pct == sorted(pct), "the mask must grow with the aperture"
+
+
+def scaling_phase(tmp, card):
+    """scaling_bench's groups: one NCCL rank at W x H, then one and two
+    gloo ranks sharing the card at DIST_RES (rank processes of the
+    script; rank 0's launch counts come back in its row)."""
+    from fovtrace_torch.scripts import scaling_bench as sb
+
+    for argv in (["--ranks", "1", "--width", str(W), "--height", str(H)],
+                 ["--ranks", "1", "2", "--backend", "gloo", "--width",
+                  str(DIST_RES), "--height", str(DIST_RES)]):
+        args = sb.build_argparser().parse_args(
+            [*argv, "--iters", "3", "--out", tmp])
+        rows = sb.scaling_rows(args)
+        assert [r["ranks"] for r in rows] == args.ranks, rows
+        for r in rows:
+            print(f"[scaling] {json.dumps(r)}")
+            path_launches(f"scaling {sb.backend_of(args)} {r['ranks']}",
+                          r["launches"])
+            assert r["rays_dropped"] == 0 and r["rays_traced"] > 0, r
+        print("\n".join(f"[scaling] {line}" for line in
+                        sb.report(args, rows).splitlines() if line))
+    print(f"[scaling] the parent's card: {card}")
+
+
 # ---- the row-sharded frame, the train step, app/optimize ------------------
 DIST_RES = 256          # the 2-rank checks' frame side
 # tests/test_dist.py's tolerance, sharded frame against the single frame
@@ -2110,6 +2237,18 @@ def main() -> int:
         shutil.rmtree(atmp, ignore_errors=True)
     ph.start("bvh")
     bvh_phase(earth, cam, card)
+
+    # ---- what foveation buys: quality, aperture sweep, scaling -------------
+    ph.start("quality")
+    quality_phase(earth, cam, card)
+    ph.start("sweep")
+    sweep_phase(earth, cam, card)
+    ph.start("scaling")
+    stmp = tempfile.mkdtemp(prefix="chip_smoke_scaling_")
+    try:
+        scaling_phase(stmp, card)
+    finally:
+        shutil.rmtree(stmp, ignore_errors=True)
 
     # ---- the row-sharded frame, the train step, app/optimize ----------------
     from fovtrace_torch.dist import launch

@@ -1,12 +1,17 @@
-"""Probe scripts: the counterparts of the JAX package's two TPU probes
-under `scripts/`. They measure and check kernel plumbing and run on no
-render path.
+"""Scripts: the counterparts of the JAX package's measurement scripts
+and of its two TPU probes under `scripts/`.
 
-    python -m fovtrace_torch.scripts.microbench_inner   # closest-hit cost parts
-    python -m fovtrace_torch.scripts.probe_smem_dma     # schedule-row copy probe
+    python -m fovtrace_torch.scripts.quality_eval      # foveated vs full frames
+    python -m fovtrace_torch.scripts.aperture_sweep    # ray % and ms per aperture
+    python -m fovtrace_torch.scripts.scaling_bench     # the sharded frame, N ranks
+    python -m fovtrace_torch.scripts.microbench_inner  # closest-hit cost parts
+    python -m fovtrace_torch.scripts.probe_smem_dma    # schedule-row copy probe
 
-Both run on the card unless given `--device cpu`, where each kernel
-wrapper runs its plain PyTorch version. Their CUDA kernels are in
+Each runs on the card unless given `--device cpu`, where each kernel
+wrapper runs its plain PyTorch version; asked for `cuda` with no card, it
+fails. The first three write their reports under `--out` (default
+`build/reports/` in the checkout), never at the checkout's root. The
+probes run on no render path; their CUDA kernels are in
 `csrc/probes.cu`, built at first use into the library `fovtrace_probes`
 with the cluster kernels' compiler command.
 """
@@ -14,6 +19,7 @@ with the cluster kernels' compiler command.
 from __future__ import annotations
 
 import ctypes
+import subprocess
 from pathlib import Path
 
 import torch
@@ -21,6 +27,9 @@ import torch
 from fovtrace_torch import _build, kernels
 from fovtrace_torch.kernels import cluster_isect as ci
 
+REPORTS_DIR = _build.REPO_ROOT / "build" / "reports"
+# the measurement scripts' camera, the reference scripts' own
+EYE, TARGET = (3.0, 2.5, 4.0), (0.0, 0.8, 0.0)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "probes.cu"
 MICRO_VARIANTS = ("loop", "slab", "mm_lane", "mm_lead", "mm_bf16", "full")
 _lib = None
@@ -68,3 +77,37 @@ def launched(fn, *args, name: str, dev) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     kernels.CALLS[name] += 1
 
+
+
+def open_device(name: str) -> torch.device:
+    """The device a script runs on; `cuda` with no card raises SystemExit
+    (a measurement never falls back to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}, but torch.cuda.is_available() "
+                         "is false")
+    return dev
+
+
+def device_label(dev) -> str:
+    """What a report names its device by: the card's name and power limit
+    as nvidia-smi gives them (torch's name where nvidia-smi is missing),
+    or `cpu`."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", str(index)],
+            check=True, capture_output=True, text=True)
+        return out.stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return torch.cuda.get_device_name(index)
+
+
+def sync(dev) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
