@@ -53,14 +53,21 @@ non-zero):
                  launches x (kernel - bound), the order of the redesign
   probe micro    the six microbenchmark kernels (csrc/probes.cu) against
                  their plain versions at the script's 2,097,152 earth
-                 primary rays (loop and slab bit for bit); each one's
-                 time, bound and ns per live (block, entry) step, beside
-                 closest_kernel's ns per visited cluster on the earth
-                 G-buffer
+                 primary rays (loop and slab bit for bit), and on forced
+                 grids of 1 and 2 CTAs in both orders bit for bit the
+                 default grid's; each one's time, bound, share of the
+                 bound, ns per live (block, entry) step and per step past
+                 the cull and persistent grid, beside closest_kernel's ns
+                 per visited cluster on the earth G-buffer; each body's
+                 inner-loop instruction mix from the probe library's SASS
+                 (mm_bf16 must issue HMMA)
   probe dma      the schedule-row copy probe at the script's size against
                  its numpy check and the plain version, then at the city
                  G-buffer's schedule (8,160 blocks, SW 768) against the
-                 plain version, timed against its bytes bound
+                 plain version, timed against its bytes bound with the
+                 bytes it copies and the table bytes it reads from L2;
+                 both on forced grids too; then a table too large for a
+                 shared-memory slice (the global-memory path)
   main earth fwd+bwd
                  bench.py's default step (pipeline.grad_step: the gradient
                  of the mean image with respect to emission, kd, eye and
@@ -159,6 +166,11 @@ non-zero):
                  32x32 8-step run (exit 0)
 Neither probe runs on a render path: their kernels' launches on the main
 paths are 0.
+
+    python3 chip_smoke.py --probe-times [ROOT]
+
+times only the two probes' kernels, of this checkout or of the one at
+ROOT (a parent's `git archive`), by their device time and their call.
 The line before last is the card's name and power limit, the one before
 it the kernels' JSON line, and the last line is the JSON result.
 """
@@ -259,18 +271,68 @@ def dev_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn) -> dict:
-    """{kernel name: device ms} of one call of fn, from torch.profiler."""
+def device_launches(fn, calls: int = 1) -> dict:
+    """{kernel name: (device ms, launches)} over `calls` calls of fn,
+    after one call that is not traced, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return {e.key: dev_us(e) / 1e3 for e in prof.key_averages()
+    return {e.key: (dev_us(e) / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
+
+
+def device_ms(fn) -> dict:
+    """{kernel name: device ms} of one call of fn, from torch.profiler."""
+    return {k: ms for k, (ms, _) in device_launches(fn).items()}
+
+
+def own_ms(fn, name: str, calls: int = 5, tries: int = 5):
+    """(device ms per launch of the kernel whose name holds `name`, device
+    ms per call of the call's other kernels, traces that missed some of
+    its launches) over `calls` calls of fn, each of which launches that
+    kernel once; the first of up to `tries` traces that records all
+    `calls` launches counts. Traces do miss launches: on the H100 traces
+    of 20 calls of the copy probe (parent's kernel and redesign alike)
+    recorded 19, 0, and in one process none in five traces. No complete
+    trace fails the smoke: nothing stands in for the kernel's time."""
+    for missed in range(tries):
+        got = device_launches(fn, calls)
+        own = [v for k, v in got.items() if name in k]
+        if sum(n for _, n in own) == calls:
+            rest = sum(ms for k, (ms, _) in got.items() if name not in k)
+            return sum(ms for ms, _ in own) / calls, rest / calls, missed
+    raise AssertionError(f"none of {tries} traces of {calls} calls records "
+                         f"every launch of {name}")
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of fn, for a call that launches one kernel and
+    nothing else (the copy probe's, which traces miss: `own_ms`): CUDA
+    events around `iters` calls queued behind a spin on the card, so the
+    host's time to launch them is hidden; a host slower than the spin
+    fails. A call's share is its kernel and the gap between two kernels
+    on one stream."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(50_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin = ev[0].elapsed_time(ev[1])
+    assert host < spin, f"queueing took {host:.3f} ms, the spin {spin:.3f}"
+    return ev[1].elapsed_time(ev[2]) / iters
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -862,12 +924,21 @@ def micro_bound(variant, inp, steps):
                                  else "bytes")
 
 
-def probe_micro(earth, card, times, results):
+PROBE_GRIDS = ((1, "longest"), (1, "ascending"), (2, "longest"),
+               (2, "ascending"))
+
+
+def probe_micro(earth, card, times, results, lib):
     """The microbenchmark at the script's size: each variant against its
-    plain version, then its time, bound and ns per live step, beside
-    closest_kernel's ns per visited cluster on the earth G-buffer."""
-    from fovtrace_torch.scripts import MICRO_VARIANTS
+    plain version on the persistent grid, and on forced grids of 1 and 2
+    CTAs in both orders bit for bit the default grid's; then its time,
+    bound, share of the bound and ns per live step and per step past the
+    cull, beside closest_kernel's ns per visited cluster on the earth
+    G-buffer; then each body's inner-loop mix from the library's SASS
+    (mm_bf16 must issue HMMA)."""
+    from fovtrace_torch.scripts import MICRO_VARIANTS, forced_grid
     from fovtrace_torch.scripts import microbench_inner as mb
+    from fovtrace_torch.scripts import sass_mix
 
     inp = mb.build_inputs(earth)
     live = int(inp.counts.sum())
@@ -903,19 +974,36 @@ def probe_micro(earth, card, times, results):
             assert bool(torch.allclose(ko[both], po[both], rtol=1e-3,
                                        atol=1e-4)), f"full: t off by {err}"
             agree = (f"{flips} flips, {int(hp.sum())} hits, t max |err| "
-                     f"{err:.3e}, {stats['steps']} steps past the cull")
+                     f"{err:.3e}")
         else:
             # float32 sums of 10 (kernel) and 16 (plain) terms in another
-            # order, |values| below ~100: rtol 1e-4 / atol 1e-4
+            # order, |values| below ~100 (mm_bf16: the tensor cores' sums
+            # of exact bf16 products): rtol 1e-4 / atol 1e-4
             err = float((ko - po).abs().max())
             assert bool(torch.allclose(ko, po, rtol=1e-4, atol=1e-4)), \
                 f"{v}: off by {err}"
             agree = f"max |err| {err:.3e}"
+        # each block is one CTA's whole: no grid or order changes a bit
+        for ctas, order in PROBE_GRIDS:
+            with forced_grid(ctas, order):
+                kf = mb.run_variant(v, *args)
+            torch.cuda.synchronize()
+            assert torch.equal(kf, ko), f"{v}: grid {ctas} {order} differs"
         k_ms = cuda_ms(lambda: mb.run_variant(v, *args), iters=20)
+        own, rest, missed = own_ms(
+            lambda: mb.run_variant(v, *args),
+            f"micro_kernel<{MICRO_VARIANTS.index(v)}>")
         b_ms, by = micro_bound(v, inp, stats.get("steps", 0))
-        print(f"[probe micro] {v:8s} kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), "
-              f"{k_ms * 1e6 / live:.3f} ns per live step, {agree}  [{card}]",
+        steps = stats.get("steps", live) if v == "full" else live
+        print(f"[probe micro] {v:8s} call {k_ms:.4f} ms (device: kernel "
+              f"{own:.4f} ms a launch + {rest:.4f} ms of ticket order and "
+              f"fills; {missed} traces missed launches), plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
+              f"{100 * b_ms / own:.1f}% of the bound, "
+              f"{own * 1e6 / live:.3f} ns per live step, "
+              f"{own * 1e6 / max(steps, 1):.3f} ns per step past the cull "
+              f"({steps}), grid {mb.grid(v, inp.nb, inp.c)} CTAs (forced "
+              f"1 / 2 CTAs, both orders: bit-equal), {agree}  [{card}]",
               flush=True)
         results[v] = (k_ms, p_ms, b_ms, by, err)
     k_ms, visited = times[("closest_hit", "gbuffer")][0], \
@@ -923,17 +1011,65 @@ def probe_micro(earth, card, times, results):
     print(f"[probe micro] closest_hit earth G-buffer: {k_ms:.4f} ms over "
           f"{visited} visited clusters, {k_ms * 1e6 / visited:.3f} ns per "
           f"visited cluster  [{card}]")
+    mix = sass_mix.report(lib, tag="[probe micro] sass")
+    bf16 = f"micro_kernel<{MICRO_VARIANTS.index('mm_bf16')}>"
+    hmma = sum(lp["counts"]["HMMA"] for lp in mix.get(bf16, []))
+    assert hmma > 0, "mm_bf16's inner loop issues no HMMA"
+    print(f"[probe micro] mm_bf16 inner loop: {hmma} HMMA")
+
+
+def dma_city_args(city_gbuffer, dma):
+    """The copy probe's arguments at the city G-buffer's schedule rows:
+    (counts [NB], sched [NB, SW], raysT [NB, 16, 256], a seeded table
+    [NSC, 256]), from closest_hit's captured G-buffer arguments."""
+    from fovtrace_torch.kernels import cluster_isect as ci
+
+    raysT, coef, schedmask, counts, _ = city_gbuffer
+    sw = schedmask.shape[1] // 2
+    nsc = coef.shape[0] // ci.pick_members(coef.shape[0])
+    rng = np.random.default_rng(SEED)
+    table = torch.from_numpy(rng.normal(size=(nsc, dma.R))
+                             .astype(np.float32)).to(raysT.device)
+    return counts, schedmask[:, :sw].contiguous(), raysT, table
+
+
+def embedding_bag_call(args):
+    """The copy probe's library yardstick on its arguments: one
+    F.embedding_bag with per-sample weights computes the weighted row
+    sums (all but the final + rays[b, 0, :]); a callable."""
+    import torch.nn.functional as F
+
+    counts, sched, _, table = args
+    live = torch.arange(sched.shape[1], device=sched.device)[None, :] \
+        < counts[:, None]
+    ents = sched[live]
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts.long()
+    ids = (ents % 65536).long()
+    w = torch.div(ents, 65536, rounding_mode="floor").to(torch.float32)
+    return lambda: F.embedding_bag(ids, table, offsets, mode="sum",
+                                   per_sample_weights=w)
 
 
 def probe_dma(city_gbuffer, card):
     """The schedule-row copy probe: the script's size against its numpy
     check and the plain version, then the city G-buffer's schedule rows
     (its real counts and entries, seeded table) against the plain
-    version, timed against its bytes bound. Returns (kernel ms, plain
+    version, timed against its bytes bound, with the bytes it copies and
+    the table bytes it reads from L2, and the kernel's own device time
+    (profiled) beside the call's; at both sizes forced grids of 1 and 2
+    CTAs in both orders give the same bits; then a table too large for a
+    shared-memory slice (the global-memory path). Returns (call ms, plain
     ms, bound ms, bound_by, library ms, max |err|) at the city shape."""
-    import torch.nn.functional as F
-
+    from fovtrace_torch.scripts import forced_grid
     from fovtrace_torch.scripts import probe_smem_dma as dma
+
+    def same_on_grids(args, want, label):
+        for ctas, order in PROBE_GRIDS:
+            with forced_grid(ctas, order):
+                got = dma.smem_dma(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"smem_dma {label}: grid " \
+                f"{ctas} {order} differs"
 
     dev = torch.device(DEVICE)
     arrays = dma.make_inputs()
@@ -945,21 +1081,16 @@ def probe_dma(city_gbuffer, card):
                          - dma.numpy_reference(*arrays)).max())
     err = float((ko - po).abs().max())
     print(f"[probe dma] script size (NB {dma.NB}, NSC {dma.NSC}, SW "
-          f"{dma.NSC_PAD}): max err vs the numpy check {n_err:.3e}, vs "
-          f"plain {err:.3e}")
-    assert n_err < 1e-3, "MISMATCH against the script's numpy check"
+          f"{dma.NSC_PAD}): table slice of {dma.table_lanes(dma.NSC)} lanes "
+          f"in shared memory, grid {dma.grid(dma.NB, dma.NSC)} CTAs; max err "
+          f"vs the numpy check {n_err:.3e}, vs plain {err:.3e}")
+    assert n_err == 0.0, "MISMATCH against the script's numpy check"
     assert torch.equal(ko, po), "smem_dma differs from its plain version"
+    same_on_grids(small, ko, "script size")
 
-    from fovtrace_torch.kernels import cluster_isect as ci
-
-    raysT, coef, schedmask, counts, _ = city_gbuffer
-    sw = schedmask.shape[1] // 2
-    nsc = coef.shape[0] // ci.pick_members(coef.shape[0])
-    sched = schedmask[:, :sw].contiguous()
-    rng = np.random.default_rng(SEED)
-    table = torch.from_numpy(rng.normal(size=(nsc, dma.R))
-                             .astype(np.float32)).to(dev)
-    args = (counts, sched, raysT, table)
+    args = dma_city_args(city_gbuffer, dma)
+    counts, sched, raysT, table = args
+    nb, sw, nsc = counts.shape[0], sched.shape[1], table.shape[0]
     po = None
 
     def run_plain():
@@ -970,34 +1101,71 @@ def probe_dma(city_gbuffer, card):
     torch.cuda.synchronize()
     err = max(err, float((ko - po).abs().max()))
     assert torch.equal(ko, po), "smem_dma differs from its plain version"
+    np.testing.assert_array_equal(ko.cpu().numpy(), dma.numpy_reference(
+        *(a.cpu().numpy() for a in args)))
+    same_on_grids(args, ko, "city rows")
+    # one shared-memory limit per kernel function: a launch on a smaller
+    # table between two at the city's must not leave it too low
+    mid = [torch.from_numpy(a).to(dev) for a in
+           dma.make_inputs(nb=64, nsc=100, sw=128, seed=SEED)]
+    assert torch.equal(dma.smem_dma(*mid), dma.plain(*mid))
+    assert torch.equal(dma.smem_dma(*args), ko), "city rows after NSC 100"
     k_ms = cuda_ms(lambda: dma.smem_dma(*args), iters=20)
+    own = queued_ms(lambda: dma.smem_dma(*args))
     # the bytes it must move: counts, the live entries, ray row 0 of each
     # block, the table and the output once; a multiply and an add per
     # live entry and lane
-    nb, live = counts.shape[0], int(counts.sum())
+    live = int(counts.sum())
     nbytes = nb * 4 + live * 4 + 2 * nb * dma.R * 4 + table.numel() * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = live * dma.R * 2 / PEAK_F32 * 1e3
     b_ms, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
-    # yardstick: one embedding_bag with per-sample weights computes the
-    # weighted row sums (all but the final + rays[b, 0, :])
-    live_m = torch.arange(sw, device=dev)[None, :] < counts[:, None]
-    ents = sched[live_m]
-    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts.long()
-    ids = (ents % 65536).long()
-    w = torch.div(ents, 65536, rounding_mode="floor").to(torch.float32)
-    bag = lambda: F.embedding_bag(ids, table, offsets, mode="sum",
-                                  per_sample_weights=w)
+    ctas, lay, lanes = dma.grid(nb, nsc), dma.layout(), dma.table_lanes(nsc)
+    moved = dma.traffic(counts, lanes, nsc, ctas)
+    # what does not scale with the entries: every count 0 leaves the
+    # table slices' load and each block's ray-row copy and store
+    zeros = (torch.zeros_like(counts), sched, raysT, table)
+    assert torch.equal(dma.smem_dma(*zeros), dma.plain(*zeros))
+    own0 = queued_ms(lambda: dma.smem_dma(*zeros))
+    loads = dma.warp_entries(counts, lanes, ctas, lay["warps"])
+    bag = embedding_bag_call(args)
     lib_ms = cuda_ms(bag, iters=20)
     lib_err = float((bag() + raysT[:, 0, :] - po).abs().max()
                     / po.abs().max())
     print(f"[probe dma] city G-buffer rows (NB {nb}, NSC {nsc}, SW {sw}, "
-          f"{live} live entries, {nbytes} B): kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), embedding_bag "
+          f"{live} live entries, {nbytes} B): call {k_ms:.4f} ms (device: "
+          f"kernel {own:.4f} ms a launch, queued behind a spin: its only "
+          f"launch), "
+          f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({by}), kernel at "
+          f"{100 * b_ms / own:.1f}% of the bound, embedding_bag "
           f"{lib_ms:.4f} ms (its sums + row 0 vs plain: max |err| / max "
-          f"|out| {lib_err:.1e}), kernel bit-equal to plain  [{card}]",
-          flush=True)
+          f"|out| {lib_err:.1e}); grid {ctas} CTAs of {lay['warps']} warps, "
+          f"{lay['ring']} chunks of {lay['ch']} entries in flight a warp, "
+          f"table slice of {lanes} lanes in shared memory; copied "
+          f"{moved['copy_bytes']} B of live row prefixes (whole rows: "
+          f"{nb * sw * 4} B) and {moved['ray_bytes']} B of ray rows 0, "
+          f"table read from L2 {moved['table_bytes']} B; with every "
+          f"count 0 the kernel takes {own0:.4f} ms; entries per warp (the "
+          f"static round robin): busiest {int(loads.max())}, mean "
+          f"{float(loads.float().mean()):.1f}; "
+          f"kernel bit-equal to plain and the numpy check, and on the "
+          f"forced grids  "
+          f"[{card}]", flush=True)
+    # a table no shared-memory slice holds: read from global memory
+    big = dma.make_inputs(nb=64, nsc=2048, sw=2048, seed=SEED)
+    big[0][0] = 2048
+    bargs = [torch.from_numpy(a).to(dev) for a in big]
+    kb = dma.smem_dma(*bargs)
+    torch.cuda.synchronize()
+    assert dma.table_lanes(2048) == 0
+    assert torch.equal(kb, dma.plain(*bargs)), "smem_dma (global table)"
+    np.testing.assert_array_equal(kb.cpu().numpy(),
+                                  dma.numpy_reference(*big))
+    same_on_grids(bargs, kb, "global table")
+    print(f"[probe dma] NSC 2048 (no slice fits: the table read from "
+          f"global memory), NB 64, a row live to its end: bit-equal to "
+          f"plain and the numpy check on the default and forced grids")
     return k_ms, p_ms, b_ms, by, lib_ms, err
 
 
@@ -2006,6 +2174,69 @@ def bvh_phase(earth, cam, card):
     assert mae < 5e-3
 
 
+def probe_times(root: str) -> int:
+    """`python3 chip_smoke.py --probe-times [ROOT]`: the two probes'
+    kernels of the checkout at ROOT (this file's own by default; a
+    parent's `git archive` to compare with), on the inputs [probe micro]
+    and [probe dma] time: each micro variant at earth's 2,097,152 primary
+    rays and smem_dma at the city G-buffer's schedule rows, with
+    F.embedding_bag beside it. Per kernel: three measurements of its
+    device ms per launch, as the smoke takes them (micro: complete
+    torch.profiler traces of 20 calls, `own_ms`; smem_dma, its call's only
+    launch: `queued_ms`), and the wrapper's call (CUDA events
+    over 20 calls). It uses only the probe modules' entry points that
+    every version of them has had, so a parent's kernels and the
+    change's are measured alike. Prints one JSON line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import fovtrace_torch
+    from fovtrace_torch.config import pin_fp32
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.scene import procedural
+    from fovtrace_torch.scripts import MICRO_VARIANTS
+    from fovtrace_torch.scripts import microbench_inner as mb
+    from fovtrace_torch.scripts import probe_smem_dma as dma
+
+    assert fovtrace_torch.__file__.startswith(root + os.sep), \
+        fovtrace_torch.__file__
+    dev = torch.device(DEVICE)
+    pin_fp32(dev)
+    card = card_line()
+    rows = {}
+
+    def measure(name, fn, kernel):
+        call = cuda_ms(fn, iters=20)
+        if kernel is None:      # the call's only launch
+            got = [(queued_ms(fn), 0.0, 0) for _ in range(3)]
+            how = "queued behind a spin"
+        else:
+            got = [own_ms(fn, kernel, calls=20) for _ in range(3)]
+            how = f"{sum(g[2] for g in got)} traces missed launches"
+        rows[name] = dict(kernel_ms=[g[0] for g in got], call_ms=call)
+        ks = " / ".join(f"{k:.4f}" for k in rows[name]["kernel_ms"])
+        print(f"[probe times] {name:14s} kernel {ks} ms a launch ({how}), "
+              f"call {call:.4f} ms  [{card}]", flush=True)
+
+    print(f"[probe times] {os.path.dirname(fovtrace_torch.__file__)}")
+    inp = mb.build_inputs(procedural.earth_scene(dev))
+    for i, v in enumerate(MICRO_VARIANTS):
+        measure(f"micro_{v}", lambda: mb.run_variant(v, *inp.args(v)),
+                f"micro_kernel<{i}>")
+    cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                        device=dev)
+    city = procedural.city_scene(dev)
+    _, _, cfg = bench_probe_frac(city, cam)
+    args = dma_city_args(capture_inputs(city, cam, cfg)["closest_hit"][0][0],
+                         dma)
+    measure("smem_dma", lambda: dma.smem_dma(*args), None)
+    rows["embedding_bag"] = dict(call_ms=cuda_ms(embedding_bag_call(args),
+                                                 iters=20))
+    print(f"[probe times] embedding_bag  call "
+          f"{rows['embedding_bag']['call_ms']:.4f} ms  [{card}]")
+    print(json.dumps({"root": root, "card": card, "times": rows}))
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
@@ -2013,6 +2244,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if len(sys.argv) > 1 and sys.argv[1] == "--probe-times":
+        return probe_times(sys.argv[2] if len(sys.argv) > 2 else
+                           os.path.dirname(os.path.abspath(__file__)))
     from fovtrace_torch import _build
     from fovtrace_torch.config import RenderConfig, pin_fp32
     from fovtrace_torch.core.camera import Camera
@@ -2167,7 +2401,7 @@ def main() -> int:
     ph.start("probe micro")
     ci.reset_counters()
     micro = {}
-    probe_micro(earth, card, times, micro)
+    probe_micro(earth, card, times, micro, libs[1])
     ph.start("probe dma")
     dma_res = probe_dma(captured["closest_hit"][0][0], card)
     probe_counts = probe_calls()

@@ -13,11 +13,15 @@ fails. The first three write their reports under `--out` (default
 `build/reports/` in the checkout), never at the checkout's root. The
 probes run on no render path; their CUDA kernels are in
 `csrc/probes.cu`, built at first use into the library `fovtrace_probes`
-with the cluster kernels' compiler command.
+with the cluster kernels' compiler command. Both run persistent CTAs,
+the microbenchmark's on the ray blocks in `ticket_order` (most live
+entries first), the copy probe's in ascending order; `forced_grid` sets
+their grid and order for tests and measurement.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import subprocess
 from pathlib import Path
@@ -32,7 +36,25 @@ REPORTS_DIR = _build.REPO_ROOT / "build" / "reports"
 EYE, TARGET = (3.0, 2.5, 4.0), (0.0, 0.8, 0.0)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "probes.cu"
 MICRO_VARIANTS = ("loop", "slab", "mm_lane", "mm_lead", "mm_bf16", "full")
+GRID_ORDERS = ("longest", "ascending")
 _lib = None
+_grid = None
+
+
+def probe_signatures() -> dict:
+    """{C entry point: (argtypes, restype)} of the probe library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # micro: rays, sched, counts, cb, coef, order, ticket, out, then nb,
+    # nc, c, ctas, stream; smem_dma: counts, sched, rays, table, order,
+    # out, then nb, sw, nsc, ctas, stream
+    out = {f"fov_micro_{v}": ([p] * 8 + [i] * 4 + [p], i)
+           for v in MICRO_VARIANTS}
+    out.update(fov_micro_ctas=([i, i, i], i),
+               fov_smem_dma=([p] * 6 + [i] * 4 + [p], i),
+               fov_smem_dma_lanes=([i], i),
+               fov_smem_dma_layout=([p], i),
+               fov_smem_dma_ctas=([i, i], i))
+    return out
 
 
 def load_probe_library() -> ctypes.CDLL:
@@ -42,17 +64,58 @@ def load_probe_library() -> ctypes.CDLL:
         path = _build.build_library("fovtrace_probes", [_CSRC],
                                     ci._nvcc_command, [ci.TMA_HEADER])
         lib = ctypes.CDLL(str(path))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for v in MICRO_VARIANTS:
-            fn = getattr(lib, f"fov_micro_{v}")
-            # rays, sched, counts, cb, coef, out, nb, nc, c, stream
-            fn.argtypes = [p] * 6 + [i, i, i, p]
-            fn.restype = ctypes.c_int
-        # counts, sched, rays, table, out, nb, sw, stream
-        lib.fov_smem_dma.argtypes = [p] * 5 + [i, i, p]
-        lib.fov_smem_dma.restype = ctypes.c_int
+        for name, (argtypes, restype) in probe_signatures().items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _lib = lib
     return _lib
+
+
+def ticket_order(counts: torch.Tensor) -> torch.Tensor:
+    """[NB] int64: the order in which the probes' persistent CTAs take
+    the ray blocks, the most live entries first, ties in block order (a
+    stable sort on the counts' device, no host sync). The probes keep
+    their own copy of the cluster kernels' order."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
+@contextlib.contextmanager
+def forced_grid(ctas: int = 0, order: str = None):
+    """For tests and measurement: inside the block the probe kernels run
+    `ctas` persistent CTAs (0: as many as fit) and take the ray blocks
+    longest first (`ticket_order`) or in ascending block order (None:
+    each probe's own default). Their results do not depend on either."""
+    global _grid
+    if isinstance(ctas, bool) or not isinstance(ctas, int) or ctas < 0 \
+            or order not in (None, *GRID_ORDERS):
+        raise ValueError(f"forced_grid({ctas!r}, {order!r}): an int of "
+                         f"CTAs >= 0, order None or in {GRID_ORDERS}")
+    saved, _grid = _grid, (ctas, order)
+    try:
+        yield
+    finally:
+        _grid = saved
+
+
+def block_order(counts: torch.Tensor, default: str = "longest"):
+    """(order, CTAs) a probe launch takes: its `default` order and 0 (as
+    many CTAs as fit), or what `forced_grid` sets. The order is
+    `ticket_order` for "longest" and None (ascending, nothing to pass)
+    for "ascending"."""
+    ctas, order = _grid if _grid is not None else (0, None)
+    if (order or default) == "ascending":
+        return None, ctas
+    return ticket_order(counts), ctas
+
+
+def check_aligned(want) -> None:
+    """Raise unless each (tensor, name) of `want` starts on 16 bytes, as
+    the kernels' bulk copies need."""
+    for t, name in want:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary for "
+                             "the bulk copies")
 
 
 def check_tensors(want, dev) -> None:

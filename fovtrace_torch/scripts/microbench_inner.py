@@ -23,8 +23,12 @@ schedule: 2048x1024 primary rays (2,097,152) of the camera at eye
 (3, 2.5, 4) -> target (0, 0.8, 0) in 16x16 tile order. `plain` is each
 variant's plain PyTorch version, stepping over schedule slots and
 vectorised over ray blocks; `run_variant` launches the CUDA kernel
-(csrc/probes.cu) on a CUDA tensor and runs the plain version on a CPU
-tensor.
+(csrc/probes.cu: persistent CTAs on a ticket, a producer warp feeding a
+TMA ring; mm_bf16 on the tensor cores) on a CUDA tensor and runs the
+plain version on a CPU tensor.
+
+Each body's inner-loop instruction mix per (ray, triangle) pair:
+`python -m fovtrace_torch.scripts.sass_mix` on the built probe library.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from fovtrace_torch.core.camera import Camera
 from fovtrace_torch.kernels import cluster_isect as ci
 from fovtrace_torch.kernels.intersect import BIG_T, DET_EPS
 from fovtrace_torch.render import gbuffer
-from fovtrace_torch.scripts import (MICRO_VARIANTS, check_tensors, launched,
+from fovtrace_torch.scripts import (MICRO_VARIANTS, block_order,
+                                    check_aligned, check_tensors, launched,
                                     load_probe_library)
 
 RB = ci.RAY_BLOCK
@@ -237,22 +242,51 @@ def _check(variant, rays, sched, counts, cb_flat, coef):
     return nb, nc, c
 
 
+def grid(variant: str, nb: int, c: int) -> int:
+    """The persistent grid micro_kernel<variant> takes for nb ray blocks
+    of cluster width c on the current card (as many CTAs as fit, at most
+    nb)."""
+    n = load_probe_library().fov_micro_ctas(MICRO_VARIANTS.index(variant),
+                                            nb, c)
+    if n < 0:
+        raise RuntimeError(f"micro_{variant}: CUDA error {-n} sizing the "
+                           "grid")
+    return n
+
+
 def run_variant(variant, rays, sched, counts, cb_flat, coef=None):
     """Variant `variant` of the microbenchmark: [N, 1] f32. On a CUDA
-    tensor it launches micro_kernel<variant> (csrc/probes.cu), on a CPU
-    tensor it runs `plain`; any other device raises. Every count must be
-    at most NC."""
+    tensor it launches micro_kernel<variant> (csrc/probes.cu) on the
+    persistent grid (or `forced_grid`'s), on a CPU tensor it runs
+    `plain`; any other device raises. Every count must be at most NC; the
+    kernel takes c a multiple of 16 and 16-byte aligned rays, AABBs and
+    coefficients."""
     nb, nc, c = _check(variant, rays, sched, counts, cb_flat, coef)
     if rays.device.type == "cpu":
         return plain(variant, rays, sched, counts, cb_flat, coef)
+    if c % 16:
+        raise ValueError(f"the kernel takes c a multiple of 16, got {c}")
+    check_aligned([(rays, "rays"), (cb_flat, "cb_flat")]
+                  + ([(coef, "coef")] if coef is not None else []))
     out = torch.empty((nb * RB, 1), dtype=torch.float32, device=rays.device)
     if nb:
-        launched(getattr(load_probe_library(), f"fov_micro_{variant}"),
-                 rays.data_ptr(), sched.data_ptr(), counts.data_ptr(),
-                 cb_flat.data_ptr(), None if coef is None else coef.data_ptr(),
-                 out.data_ptr(), nb, nc, c, name=f"micro_{variant}",
-                 dev=rays.device)
+        _launch(variant, rays, sched, counts, cb_flat, coef, out, nc, c)
     return out
+
+
+def _launch(variant, rays, sched, counts, cb_flat, coef, out, nc, c):
+    """Launch micro_kernel<variant> on the current stream, its ray blocks
+    in `block_order` (longest first by default; no order passed for
+    ascending) through a zeroed ticket; count the launch."""
+    order, ctas = block_order(counts)
+    ticket = torch.zeros(1, dtype=torch.int32, device=rays.device)
+    launched(getattr(load_probe_library(), f"fov_micro_{variant}"),
+             rays.data_ptr(), sched.data_ptr(), counts.data_ptr(),
+             cb_flat.data_ptr(), None if coef is None else coef.data_ptr(),
+             None if order is None else order.data_ptr(),
+             ticket.data_ptr(), out.data_ptr(),
+             counts.shape[0], nc, c, ctas, name=f"micro_{variant}",
+             dev=rays.device)
 
 
 def mean_ms(fn, dev, iters: int, warmup: int = 1) -> float:
@@ -293,9 +327,11 @@ def main(argv=None) -> int:
     for v in MICRO_VARIANTS:
         ms = mean_ms(lambda: run_variant(v, *inp.args(v)), dev,
                      iters=args.iters, warmup=3)
+        where = (f"{grid(v, inp.nb, inp.c)} CTAs" if dev.type == "cuda"
+                 else dev.type)
         print(f"[micro] {NAMES[v]:44s} {ms:9.2f} ms  "
               f"{ms * 1e6 / max(live, 1):8.2f} ns per live step  "
-              f"[{dev.type}]", file=sys.stderr, flush=True)
+              f"[{where}]", file=sys.stderr, flush=True)
     return 0
 
 

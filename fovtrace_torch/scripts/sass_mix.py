@@ -1,21 +1,25 @@
-"""Instruction mix of the cluster kernels' inner loops, read from the
-SASS that `cuobjdump -sass` prints for a built kernel library.
+"""Instruction mix of the CUDA kernels' inner loops, read from the SASS
+that `cuobjdump -sass` prints for a built kernel library.
 
     python -m fovtrace_torch.scripts.sass_mix [LIB.so ...]
 
-With no library it builds (or reuses) the port's cluster library. For
+With no library it builds (or reuses) the port's cluster library; the
+probes' is `build/fovtrace_torch/libfovtrace_probes-*.so` once built. For
 each kernel it finds the innermost loops that hold at least one pair's
-40 FFMAs: a backward branch and the instructions from its target up to
-it. Per loop it counts FFMA, shared-memory loads (LDS of any width), the
-rest, and MUFU.RCP: each (ray, triangle) pair takes exactly one
-reciprocal (1 / det), so the loop's MUFU.RCP count is its pairs per
-iteration. The counts are static: an instruction in a branch inside the
-loop counts once, however rarely it runs (the division and the best-hit
-update run only for a pair that passes the edge tests). The IEEE
-division adds a few FFMAs per pair to the dot products' 40. The loop's
-head, from its first instruction to its first branch, is counted apart:
-where that branch skips what few pairs need, the head is the path most
-iterations take.
+40 FFMAs, or a tensor-core MMA (HMMA): a backward branch and the
+instructions from its target up to it. Per loop it counts FFMA, HMMA,
+shared-memory loads (LDS of any width), the rest, and MUFU.RCP. In a
+cluster kernel each (ray, triangle) pair takes exactly one reciprocal
+(1 / det), so the loop's MUFU.RCP count is its pairs per iteration. The
+probe library's microbenchmark bodies (csrc/probes.cu, `micro_kernel<V>`
+with V the variant's index in `scripts.MICRO_VARIANTS`) count theirs by
+`probe_pairs`. The counts are static: an instruction in a branch inside
+the loop counts once, however rarely it runs (the division and the
+best-hit update run only for a pair that passes the edge tests). The
+IEEE division adds a few FFMAs per pair to the dot products' 40. The
+loop's head, from its first instruction to its first branch, is counted
+apart: where that branch skips what few pairs need, the head is the path
+most iterations take.
 
 It needs `cuobjdump` (the CUDA toolkit's, or the one Triton ships).
 """
@@ -83,18 +87,34 @@ def short_name(mangled: str) -> str:
 
 def _category(op: str) -> str:
     base = op.split(".")[0]
-    if base == "FFMA":
-        return "FFMA"
-    if base == "LDS":
-        return "LDS"
+    if base in ("FFMA", "LDS", "HMMA"):
+        return base
     if op.startswith("MUFU.RCP"):
         return "MUFU.RCP"
     return "other"
 
 
+def rcp_pairs(counts: Counter) -> int:
+    """A cluster kernel's pairs per loop iteration: one reciprocal each."""
+    return counts["MUFU.RCP"]
+
+
+def probe_pairs(counts: Counter) -> int:
+    """A microbenchmark body's pairs per thread and loop iteration: its
+    MUFU.RCPs where each pair divides once (full), else its HMMAs
+    (mm_bf16: an m16n8k16 gives each lane 4 columns of one ray, one
+    pair), else one per 40 FFMAs (mm_lane, mm_lead)."""
+    return counts["MUFU.RCP"] or counts["HMMA"] or counts["FFMA"] // 40
+
+
+def pair_rule(short: str):
+    """The pairs-per-iteration rule of the kernel named `short`."""
+    return probe_pairs if short.startswith("micro_kernel<") else rcp_pairs
+
+
 def inner_loops(insns: List[tuple]) -> List[dict]:
     """The innermost loops that hold at least one pair's dot products
-    (40 FFMAs), each with its counts."""
+    (40 FFMAs, or an HMMA), each with its counts."""
     addr = [a for a, _, _ in insns]
     loops = []
     for a, op, rest in insns:
@@ -106,7 +126,7 @@ def inner_loops(insns: List[tuple]) -> List[dict]:
         lo = int(t.group(1), 16)
         body = [i for i, x in enumerate(addr) if lo <= x <= a]
         cnt = Counter(_category(insns[i][1]) for i in body)
-        if cnt["FFMA"] >= 40:
+        if cnt["FFMA"] >= 40 or cnt["HMMA"]:
             first = next(i for i in body
                          if insns[i][1].split(".")[0] == "BRA")
             head = Counter(_category(insns[i][1])
@@ -119,25 +139,27 @@ def inner_loops(insns: List[tuple]) -> List[dict]:
 
 
 def report(lib: str, tag: str = "[sass]") -> dict:
-    """Print each kernel's inner-loop mix; {short name: [loops]}."""
+    """Print each kernel's inner-loop mix; {short name: [loops]}, each
+    loop with its `pairs` per iteration (`pair_rule`)."""
     res = {}
     for name, insns in sorted(functions(lib).items()):
         short = short_name(name)
         res[short] = inner_loops(insns)
         for lp in res[short]:
             c = lp["counts"]
-            pairs = c["MUFU.RCP"]
+            pairs = lp["pairs"] = pair_rule(short)(c)
             per = (lambda k: f"{c[k] / pairs:.2f}") if pairs else \
                 (lambda k: "n/a")
             h = lp["head"]
             print(f"{tag} {Path(lib).name} {short} loop "
                   f"0x{lp['lo']:x}-0x{lp['hi']:x}: {lp['n']} instructions, "
-                  f"{c['FFMA']} FFMA, {c['LDS']} LDS, {c['MUFU.RCP']} "
-                  f"MUFU.RCP, {c['other']} other; pairs per iteration "
-                  f"{pairs}; per pair FFMA {per('FFMA')}, LDS {per('LDS')}, "
-                  f"other {per('other')} (+{per('MUFU.RCP')} MUFU.RCP); "
-                  f"head to the first branch {lp['head_n']} instructions: "
-                  f"{h['FFMA']} FFMA, {h['LDS']} LDS, "
+                  f"{c['FFMA']} FFMA, {c['LDS']} LDS, {c['HMMA']} HMMA, "
+                  f"{c['MUFU.RCP']} MUFU.RCP, {c['other']} other; pairs per "
+                  f"iteration {pairs}; per pair FFMA {per('FFMA')}, LDS "
+                  f"{per('LDS')}, HMMA {per('HMMA')}, other {per('other')} "
+                  f"(+{per('MUFU.RCP')} MUFU.RCP); head to the first branch "
+                  f"{lp['head_n']} instructions: {h['FFMA']} FFMA, "
+                  f"{h['LDS']} LDS, {h['HMMA']} HMMA, "
                   f"{h['MUFU.RCP'] + h['other']} other", flush=True)
     return res
 

@@ -5,8 +5,9 @@ ties and on blocks whose warps exit at different points), the streaming
 kernels on the city scene (M = 2), on earth forced to stream (bit for
 bit equal to the resident kernels), on multi forced to M = 16, on the
 same ties and warp exits, and with the ray blocks' split forced; then
-the probe kernels (csrc/probes.cu). Seeded rays. Marked `cuda`; skipped
-without a GPU.
+the probe kernels (csrc/probes.cu) on their default and forced grids,
+and the row-copy probe on each of its table paths. Seeded rays. Marked
+`cuda`; skipped without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -23,7 +24,7 @@ from fovtrace_torch.kernels import cluster_isect as ci
 from fovtrace_torch.kernels import intersect as isect
 from fovtrace_torch.render import gbuffer
 from fovtrace_torch.scene import procedural
-from fovtrace_torch.scripts import MICRO_VARIANTS
+from fovtrace_torch.scripts import MICRO_VARIANTS, forced_grid
 from fovtrace_torch.scripts import microbench_inner as mb
 from fovtrace_torch.scripts import probe_smem_dma as dma
 
@@ -442,14 +443,7 @@ def micro(earth):
     return mb.build_inputs(earth, 128, 128)     # 64 ray blocks
 
 
-@pytest.mark.parametrize("variant", MICRO_VARIANTS)
-def test_micro_kernel_matches_plain(micro, variant):
-    args = micro.args(variant)
-    kernels.CALLS.clear()
-    got = mb.run_variant(variant, *args)
-    torch.cuda.synchronize()
-    assert kernels.CALLS[f"micro_{variant}"] == 1
-    want = mb.plain(variant, *args)
+def _micro_agrees(variant, got, want):
     if variant in ("loop", "slab"):
         assert torch.equal(got, want)
     elif variant == "full":
@@ -461,8 +455,35 @@ def test_micro_kernel_matches_plain(micro, variant):
         torch.testing.assert_close(got[both], want[both], rtol=1e-3,
                                    atol=1e-4)
     else:
-        # float32 sums of 10 (kernel) and 16 (plain) terms in another order
+        # float32 sums of 10 (kernel) and 16 (plain) terms in another
+        # order; mm_bf16 on the tensor cores
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", MICRO_VARIANTS)
+def test_micro_kernel_matches_plain(micro, variant):
+    args = micro.args(variant)
+    kernels.CALLS.clear()
+    got = mb.run_variant(variant, *args)
+    torch.cuda.synchronize()
+    assert kernels.CALLS[f"micro_{variant}"] == 1
+    _micro_agrees(variant, got, mb.plain(variant, *args))
+
+
+@pytest.mark.parametrize("order", ["longest", "ascending"])
+@pytest.mark.parametrize("ctas", [1, 2, "all"])
+@pytest.mark.parametrize("variant", MICRO_VARIANTS)
+def test_micro_kernel_on_forced_grids(micro, variant, ctas, order):
+    """Each ray block is computed whole by one CTA, so no grid or order
+    changes a bit of the result."""
+    args = micro.args(variant)
+    default = mb.run_variant(variant, *args)
+    n = mb.grid(variant, micro.nb, micro.c) if ctas == "all" else ctas
+    with forced_grid(n, order):
+        got = mb.run_variant(variant, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, default)
+    _micro_agrees(variant, got, mb.plain(variant, *args))
 
 
 def test_smem_dma_kernel_matches_plain(dev):
@@ -476,3 +497,73 @@ def test_smem_dma_kernel_matches_plain(dev):
         assert torch.equal(got, dma.plain(*args))
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       dma.numpy_reference(*arrays))
+
+
+@pytest.mark.parametrize("order", ["longest", "ascending"])
+@pytest.mark.parametrize("ctas", [0, 1, 2, 5])
+# the 64-lane table slice in shared memory (the script's and the city's
+# NSC, and the largest that fits), and tables too large for it (read from
+# global memory)
+@pytest.mark.parametrize("nsc", [64, 666, 700, 701, 2048])
+def test_smem_dma_kernel_paths_and_grids(dev, nsc, ctas, order):
+    sw = (nsc + 3) // 4 * 4 + 64
+    counts, sched, rays, table = dma.make_inputs(nb=40, nsc=nsc, sw=sw,
+                                                 seed=nsc)
+    counts[0] = sw          # a row live to its end
+    counts[1] = 0           # an empty row
+    counts[2:6] = np.minimum((63, 64, 65, 129), sw)     # chunk edges
+    args = [torch.from_numpy(a).to(dev) for a in (counts, sched, rays,
+                                                  table)]
+    from fovtrace_torch.scripts import load_probe_library
+    assert load_probe_library().fov_smem_dma_lanes(nsc) == \
+        dma.lane_slice(nsc)
+    with forced_grid(ctas, order):
+        got = dma.smem_dma(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dma.plain(*args))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), dma.numpy_reference(counts, sched, rays, table))
+
+
+def test_smem_dma_tables_shrinking_then_growing(dev):
+    """A kernel function has one shared-memory limit: a launch on a
+    smaller table (NSC 100) between two on the city's (NSC 666, 219 KB)
+    must not leave it too low for the second."""
+    for nsc in (666, 100, 666):
+        arrays = dma.make_inputs(nb=32, nsc=nsc, sw=(nsc + 3) // 4 * 4,
+                                 seed=nsc)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = dma.smem_dma(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, dma.plain(*args)), nsc
+
+
+def test_micro_widths_shrinking_then_growing(dev):
+    """The same for micro_kernel<V>, whose ring grows with c: c 128, then
+    16, then 128 again."""
+    for c in (128, 16, 128):
+        nb, nc = 4, 3
+        g = torch.Generator().manual_seed(c)
+        rays = torch.randn(nb * 256, 16, generator=g).to(dev)
+        counts = torch.tensor([3, 1, 0, 2], dtype=torch.int32, device=dev)
+        sched = torch.arange(nb * nc, dtype=torch.int32).remainder(nc) \
+            .to(dev)
+        lo = torch.randn(nc, 3, generator=g)
+        cb = torch.cat([lo, lo + 1, torch.zeros(nc, 2)], 1).reshape(-1) \
+            .to(dev)
+        coef = torch.randn(nc, 16, 4 * c, generator=g)
+        coef[:, 10:] = 0.0      # as in the pack: the kernel reads rows 0-9
+        coef = coef.to(dev)
+        got = mb.run_variant("mm_lead", rays, sched, counts, cb, coef)
+        torch.cuda.synchronize()
+        _micro_agrees("mm_lead", got,
+                      mb.plain("mm_lead", rays, sched, counts, cb, coef))
+
+
+def test_smem_dma_layout_matches_the_mirror(dev):
+    """The library's layout is what probe_smem_dma's copies of it (which
+    `lane_slice` and its CPU test use) say."""
+    assert dma.layout() == dict(warps=dma.WARPS, ch=dma.CH, ring=dma.RING,
+                                lanes=dma.LANES, smem=dma.SMEM)
+    for nsc in (1, 64, 666, 700, 701, 2048):
+        assert dma.table_lanes(nsc) == dma.lane_slice(nsc)

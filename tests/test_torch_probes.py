@@ -12,7 +12,10 @@ written against. `scripts/` is read, never changed.
 """
 
 import ast
+import contextlib
+import ctypes
 import importlib.util
+import re
 import types
 from pathlib import Path
 
@@ -26,6 +29,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from fovtrace.kernels import intersect as jisect  # noqa: E402
+from fovtrace_torch import kernels, scripts  # noqa: E402
 from fovtrace_torch.kernels import cluster_isect as ci  # noqa: E402
 from fovtrace_torch.scene import procedural  # noqa: E402
 from fovtrace_torch.scripts import MICRO_VARIANTS  # noqa: E402
@@ -255,9 +259,261 @@ def test_probe_wrappers_check_shapes(micro_inputs):
         mb.run_variant("mm_lane", *inp.args("mm_lead"))
     with pytest.raises(TypeError, match="bfloat16"):
         mb.run_variant("mm_bf16", *inp.args("mm_lead"))
-    counts, sched, rays, table = (torch.from_numpy(a)
-                                  for a in dma.make_inputs())
-    with pytest.raises(ValueError, match="multiple of 8"):
-        dma.smem_dma(counts[:12], sched[:12], rays[:12], table)
+    arrays = dma.make_inputs()
+    counts, sched, rays, table = (torch.from_numpy(a) for a in arrays)
+    # the persistent kernel takes any NB; rays must match it
+    got = dma.smem_dma(counts[:12], sched[:12], rays[:12], table)
+    np.testing.assert_array_equal(
+        got.numpy(), dma.numpy_reference(*(a[:12] for a in arrays[:3]),
+                                         arrays[3]))
+    with pytest.raises(ValueError, match="rays must be"):
+        dma.smem_dma(counts[:12], sched[:12], rays, table)
     with pytest.raises(ValueError, match="multiple of 4"):
         dma.smem_dma(counts, sched[:, :126].contiguous(), rays, table)
+
+
+# ------------------------------------------------ the persistent probes
+@pytest.mark.parametrize("counts", [[3, 0, 7, 7, 1, 3], [5] * 9, [0, 0, 1],
+                                    list(range(40)),
+                                    [44, 2, 44, 0, 1, 2, 2, 9]])
+def test_probe_ticket_order(counts):
+    c = torch.tensor(counts, dtype=torch.int32)
+    order = scripts.ticket_order(c)
+    assert order.dtype == torch.int64
+    assert sorted(order.tolist()) == list(range(len(counts)))
+    oc = c[order]
+    assert bool((oc[:-1] >= oc[1:]).all())      # most live entries first
+    tie = oc[:-1] == oc[1:]
+    assert bool((order[:-1][tie] < order[1:][tie]).all())   # ties in order
+    # the probes' own copy orders as the cluster kernels do
+    assert torch.equal(order, ci.ticket_order(c))
+
+
+def test_probe_ticket_order_of_the_micro_inputs(micro_inputs):
+    order = scripts.ticket_order(micro_inputs.counts)
+    assert int(micro_inputs.counts[order[0]]) == \
+        int(micro_inputs.counts.max())
+    assert torch.equal(order.sort().values, torch.arange(micro_inputs.nb))
+
+
+@pytest.mark.parametrize("ctas, order", [(-1, "longest"), (1.5, "longest"),
+                                         (True, "longest"), ("2", "longest"),
+                                         (2, "descending"), (0, "random")])
+def test_forced_grid_refuses_bad_arguments(ctas, order):
+    with pytest.raises(ValueError, match="forced_grid"):
+        with scripts.forced_grid(ctas, order):
+            pass
+    assert scripts._grid is None
+
+
+def test_forced_grid_sets_and_restores():
+    c = torch.tensor([1, 5, 5, 0], dtype=torch.int32)
+    order, ctas = scripts.block_order(c)
+    assert ctas == 0 and order.tolist() == [1, 2, 0, 3]
+    # the row-copy probe's default: ascending, no order passed
+    assert scripts.block_order(c, default="ascending") == (None, 0)
+    with scripts.forced_grid(2, "ascending"):
+        assert scripts.block_order(c) == (None, 2)
+        with scripts.forced_grid(1, "longest"):
+            order, ctas = scripts.block_order(c, default="ascending")
+            assert ctas == 1 and order.tolist() == [1, 2, 0, 3]
+        assert scripts.block_order(c)[1] == 2
+    with scripts.forced_grid(3):      # each probe's own order
+        assert scripts.block_order(c)[0].tolist() == [1, 2, 0, 3]
+        assert scripts.block_order(c, default="ascending") == (None, 3)
+    assert scripts._grid is None
+    with pytest.raises(RuntimeError):
+        with scripts.forced_grid(3):
+            raise RuntimeError
+    assert scripts._grid is None
+
+
+@pytest.mark.parametrize("counts", [[0, 1, 2, 3, 4, 5, 63, 64, 65, 768],
+                                    list(range(0, 200, 7)), [0] * 5])
+def test_smem_dma_prefix_bytes(counts):
+    c = torch.tensor(counts, dtype=torch.int32)
+    b = dma.prefix_bytes(c)
+    assert b.dtype == torch.int64 and b.shape == c.shape
+    assert bool((b % 16 == 0).all())                     # bulk-copy sizes
+    assert bool((b >= 4 * c).all() and (b < 4 * c + 16).all())   # cover
+    assert bool((b[c == 0] == 0).all())                  # an empty row
+    # never past a padded row: SW is a multiple of 4 and >= every count
+    sw = (max(counts) + 3) // 4 * 4
+    assert int(b.max()) <= 4 * sw
+
+
+def test_smem_dma_prefix_bytes_of_padded_rows():
+    counts = torch.from_numpy(dma.make_inputs(nb=16, nsc=666, sw=768)[0])
+    assert int(dma.prefix_bytes(counts).max()) <= 768 * 4
+    assert dma.prefix_bytes(torch.tensor([768], dtype=torch.int32)).item() \
+        == 768 * 4
+
+
+# a 64-lane slice while [NSC, 64] f32 fits beside the rings (6 stages of
+# 64 entries and a ray-row slice for each of 16 warps) in 227 KB - 4 KB,
+# else 0 (global memory): up to 700 rows
+@pytest.mark.parametrize("nsc, lanes", [(1, 64), (64, 64), (666, 64),
+                                        (700, 64), (701, 0), (2048, 0)])
+def test_smem_dma_lane_slice_by_table_size(nsc, lanes):
+    assert dma.lane_slice(nsc) == lanes
+    assert (nsc * 64 * 4 + dma.ring_bytes(64) <= dma.SMEM) == (lanes == 64)
+    assert dma.ring_bytes(64) == 16 * 6 * 512
+
+
+def test_smem_dma_traffic():
+    counts = torch.tensor([0, 1, 14, 64, 65], dtype=torch.int32)
+    t = dma.traffic(counts, 64, 666, ctas=132)
+    assert t == dict(copy_bytes=0 + 16 + 64 + 256 + 272, ray_bytes=5 * 1024,
+                     table_bytes=132 * 666 * 64 * 4)
+    # fewer CTAs than slices: each slice loaded once
+    assert dma.traffic(counts, 64, 666, ctas=2)["table_bytes"] == \
+        666 * 256 * 4
+    # the table in global memory: a 1 KB row per live entry
+    assert dma.traffic(counts, 0, 4096, ctas=8) == dict(
+        copy_bytes=608, ray_bytes=5 * 1024, table_bytes=144 * 1024)
+
+
+@pytest.mark.parametrize("lanes, ctas, warps", [(64, 132, 528), (64, 2, 16),
+                                                (64, 5, 32), (0, 3, 48)])
+def test_smem_dma_warp_entries(lanes, ctas, warps):
+    """The kernel's static round robin: slice 0's CTAs (all of them on the
+    global-memory path) and their warps take blocks p, p + warps, ..."""
+    counts = torch.arange(1, 1001, dtype=torch.int32) % 37
+    w = dma.warp_entries(counts, lanes, ctas, 16)
+    assert w.shape == (warps,) and int(w.sum()) == int(counts.sum())
+    assert int(w[3]) == int(counts[3::warps].sum())
+
+
+def test_smem_dma_layout_reads_the_library(monkeypatch):
+    """`layout` passes fov_smem_dma_layout the address of five ints and
+    reads back what the library wrote there."""
+    seen = []
+
+    class Lib:
+        def fov_smem_dma_layout(self, addr):
+            seen.append(addr)
+            (ctypes.c_int * 5).from_address(addr)[:] = [16, 64, 6, 64, 9]
+            return 0
+
+    monkeypatch.setattr(dma, "load_probe_library", Lib)
+    assert dma.layout() == dict(warps=16, ch=64, ring=6, lanes=64, smem=9)
+    _fits("fov_smem_dma_layout", tuple(seen))
+
+
+class _Lib:
+    """Stands in for the probe library: records each entry point's
+    arguments and returns `ret`."""
+
+    def __init__(self, ret=0):
+        self.calls, self.ret = [], ret
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or self.ret
+
+
+def _fits(name, args):
+    argtypes, _ = scripts.probe_signatures()[name]
+    assert len(args) == len(argtypes), name
+    for v, t in zip(args, argtypes):
+        assert v is None or isinstance(v, int), (name, v)
+        if t is ctypes.c_int:
+            assert isinstance(v, int) and 0 <= v < 1 << 31, (name, v)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    lib = _Lib()
+    monkeypatch.setattr(mb, "load_probe_library", lambda: lib)
+    monkeypatch.setattr(dma, "load_probe_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    kernels.CALLS.clear()
+    return lib
+
+
+_FORCE = {None: None, "two-ascending": (2, "ascending"),
+          "one-longest": (1, "longest")}
+
+
+@pytest.mark.parametrize("force", list(_FORCE))
+@pytest.mark.parametrize("variant", MICRO_VARIANTS)
+def test_micro_launch_fits_the_c_entry_point(micro_inputs, stand_in,
+                                             variant, force):
+    """The wrapper's launch passes fov_micro_<variant> as many arguments
+    as its ctypes signature has: pointers (NULL coefficients for loop and
+    slab), the ticket order and counter, then nb, nc, c and the grid (0:
+    as many CTAs as fit). CPU tensors, a stand-in library."""
+    inp = micro_inputs
+    out = torch.empty((inp.nb * ci.RAY_BLOCK, 1))
+    f = _FORCE[force]
+    with scripts.forced_grid(*f) if f else contextlib.nullcontext():
+        mb._launch(variant, *inp.args(variant), out, inp.nc, inp.c)
+    (name, args), = stand_in.calls
+    assert name == f"fov_micro_{variant}"
+    _fits(name, args)
+    assert (args[4] is None) == (variant in ("loop", "slab"))
+    # the ticket order, NULL for ascending blocks
+    assert (args[5] is None) == (f is not None and f[1] == "ascending")
+    assert args[-5:-1] == (inp.nb, inp.nc, inp.c, f[0] if f else 0)
+    assert kernels.CALLS[f"micro_{variant}"] == 1
+
+
+@pytest.mark.parametrize("force", list(_FORCE))
+def test_smem_dma_launch_fits_the_c_entry_point(stand_in, force):
+    counts, sched, rays, table = (torch.from_numpy(a) for a in
+                                  dma.make_inputs(nb=16, nsc=666, sw=768))
+    out = torch.empty((16, dma.R))
+    f = _FORCE[force]
+    with scripts.forced_grid(*f) if f else contextlib.nullcontext():
+        dma._launch(counts, sched, rays, table, out)
+    (name, args), = stand_in.calls
+    assert name == "fov_smem_dma"
+    _fits(name, args)
+    # ascending (NULL) unless the grid asks for the longest first
+    assert (args[4] is None) == (f is None or f[1] == "ascending")
+    assert args[-5:-1] == (16, 768, 666, f[0] if f else 0)
+    assert kernels.CALLS["smem_dma"] == 1
+
+
+def test_probe_grids_raise_on_a_cuda_error(stand_in):
+    stand_in.ret = -2
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        mb.grid("full", 8, 128)
+    with pytest.raises(RuntimeError, match="CUDA error 2"):
+        dma.grid(8, 666)
+    stand_in.ret = 132
+    assert mb.grid("mm_bf16", 8192, 128) == 132 and dma.grid(8, 666) == 132
+    assert stand_in.calls[-2] == ("fov_micro_ctas", (4, 8192, 128))
+    assert stand_in.calls[-1] == ("fov_smem_dma_ctas", (8, 666))
+
+
+def test_probe_signatures_match_the_source():
+    """Each C entry point of csrc/probes.cu takes what its ctypes
+    signature says: a pointer (or the stream) where it says c_void_p, an
+    int where it says c_int."""
+    src = (Path(mb.__file__).resolve().parent.parent / "csrc"
+           / "probes.cu").read_text()
+    body = src[src.index('extern "C" {'):]
+    found = {}
+    for m in re.finditer(r"int (fov_\w+?)(?:##name)?\(([^)]*)\)", body):
+        params = [q.strip() for q in m.group(2).replace("\\", "")
+                  .split(",")]
+        kinds = [ctypes.c_void_p if "*" in q or "cudaStream_t" in q
+                 else ctypes.c_int for q in params]
+        if m.group(1) == "fov_micro_":
+            for v in MICRO_VARIANTS:
+                found[f"fov_micro_{v}"] = kinds
+        else:
+            found[m.group(1)] = kinds
+    sigs = scripts.probe_signatures()
+    assert sorted(found) == sorted(sigs)
+    for name, (argtypes, restype) in sigs.items():
+        assert argtypes == found[name], name
+        assert restype is ctypes.c_int
+
+
+def test_check_aligned():
+    t = torch.zeros(64)
+    scripts.check_aligned([(t, "t")])
+    with pytest.raises(ValueError, match="16-byte"):
+        scripts.check_aligned([(t[1:], "t")])

@@ -89,3 +89,50 @@ def test_report_covers_every_kernel(monkeypatch, capsys):
                                    for ln in lines)
     assert "pairs per iteration 1; per pair FFMA 40.00" in lines[1]
     assert "pairs per iteration 0; per pair FFMA n/a" in lines[0]
+
+
+def _probe_listing():
+    """The probe library's bodies: micro_kernel<4> (mm_bf16) whose loop
+    holds 32 HMMA and no FFMA, micro_kernel<2> (mm_lane) whose loop holds
+    four pairs' 160 FFMA, and a copy kernel with no pair loop."""
+    out = []
+    for v, body in ((4, ["LDS.128 R4, [R2]"]
+                     + ["HMMA.16816.F32.BF16 R8, R4, R6, R8"] * 32
+                     + ["FMNMX R0, R8, R0, PT"] * 128),
+                    (2, ["LDS.128 R4, [R2]"] * 10
+                     + ["FFMA R8, R4, R5, R8"] * 160)):
+        out.append(f"        Function : _ZN41_GLOBAL__N__f787fa35_9_probes_cu"
+                   f"_9ea646c712micro_kernelILi{v}EEEvNS_9MicroArgsE\n")
+        out += [_insn(16 * i, t) for i, t in enumerate(body)]
+        out.append(_insn(16 * len(body), "@P0 BRA 0x0"))
+    out.append("        Function : _ZN41_GLOBAL__N__f787fa35_9_probes_cu_9ea6"
+               "46c715smem_dma_kernelILi2ELb1EEEvPKiS2_PKfS4_PKxPfiii\n")
+    out += [_insn(0, "LDS R1, [R2]"), _insn(16, "FADD R3, R3, R1"),
+            _insn(32, "@P0 BRA 0x0")]
+    return "".join(out)
+
+
+def test_probe_bodies_count_hmma(monkeypatch, capsys):
+    """A loop of HMMAs is a pair loop with no FFMA; the probe bodies
+    count a pair per HMMA (mm_bf16) or per 40 FFMAs (mm_lane), the
+    cluster kernels one per MUFU.RCP."""
+    funcs = sass_mix.parse(_probe_listing())
+    by = {sass_mix.short_name(k): v for k, v in funcs.items()}
+    assert sorted(by) == ["micro_kernel<2>", "micro_kernel<4>",
+                          "smem_dma_kernel"]
+    bf16, = sass_mix.inner_loops(by["micro_kernel<4>"])
+    assert bf16["counts"] == {"LDS": 1, "HMMA": 32, "other": 129}
+    assert sass_mix.inner_loops(by["smem_dma_kernel"]) == []
+    assert sass_mix.pair_rule("micro_kernel<4>") is sass_mix.probe_pairs
+    assert sass_mix.pair_rule("closest_kernel") is sass_mix.rcp_pairs
+    monkeypatch.setattr(sass_mix, "functions",
+                        lambda lib: sass_mix.parse(_probe_listing()))
+    res = sass_mix.report("probes.so")
+    assert [lp["pairs"] for lp in res["micro_kernel<4>"]] == [32]
+    assert [lp["pairs"] for lp in res["micro_kernel<2>"]] == [4]
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2
+    assert "0 FFMA, 1 LDS, 32 HMMA" in lines[1]
+    assert "pairs per iteration 32; per pair FFMA 0.00, LDS 0.03, HMMA " \
+        "1.00, other 4.03" in lines[1]
+    assert "pairs per iteration 4; per pair FFMA 40.00, LDS 2.50" in lines[0]
