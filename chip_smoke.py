@@ -83,6 +83,14 @@ non-zero):
                  bounce, gradients within rtol 1e-4
   main city fwd+bwd
                  the fwd+bwd step on city through the streaming kernels
+  bench          `python -m fovtrace_torch.bench`'s run (bench.py's twin),
+                 in this process at 1920x1088, --iters 5 --warmup 1: earth
+                 fwd+bwd --selfcheck, earth --forward-only and city
+                 --forward-only --selfcheck; each JSON line has bench.py's
+                 four keys and a finite positive value, no ray dropped,
+                 the selfcheck above 0.999, and the timed steps launched
+                 the route's cluster kernels (resident on earth, streaming
+                 on city) and no plain version or brute oracle
   parity         256x256 frames with the kernels vs with the plain
                  versions (earth, city); a 64x64 earth frame vs
                  tests/golden/earth.npz
@@ -587,22 +595,69 @@ def probe_calls() -> dict:
 
 
 def bench_probe_frac(scene, cam, **extra):
-    """bench.py's budget sizing: one probe frame; if the mask is denser
-    than the budget, raise the fraction to cover it plus 2%. `extra`
+    """bench.py's budget sizing at W x H, the package's
+    (`fovtrace_torch.bench.size_budget`): one probe frame; if the mask is
+    denser than the budget, the fraction covers it plus 2%. `extra`
     overrides the bench configuration (a sampling mode, say)."""
-    from fovtrace_torch.config import RenderConfig
-    from fovtrace_torch.render import pipeline
+    from fovtrace_torch import bench
 
-    cfg = RenderConfig(width=W, height=H, ray_budget_frac=0.50,
-                       full_outputs=False, **{**GAZE_CFG, **extra})
-    probe, _ = pipeline.render_frame(scene, cam, (H // 2, W // 2),
-                                     pipeline.FrameState.initial(cam, cfg),
-                                     cfg)
-    need = int(probe["ray_count"]) / (W * H)
-    frac = 0.50
-    if int(probe["rays_dropped"]) > 0 or need > frac:
-        frac = min(1.0, float(np.ceil((need + 0.02) * 20)) / 20)
-    return need, frac, cfg.replace(ray_budget_frac=frac)
+    return bench.size_budget(scene, cam, (H // 2, W // 2),
+                             bench.bench_config(W, H).replace(**extra))
+
+
+# the [bench] phase's runs of fovtrace_torch.bench: (label, scene, flags)
+BENCH_RUNS = (("earth fwd+bwd", "earth", ("--selfcheck",)),
+              ("earth fwd", "earth", ("--forward-only",)),
+              ("city fwd", "city", ("--forward-only", "--selfcheck")))
+BENCH_KEYS = ["metric", "unit", "value", "vs_baseline"]
+
+
+def bench_phase(scenes, card):
+    """fovtrace_torch.bench's run in this process at W x H (--iters 5
+    --warmup 1) on each of BENCH_RUNS, its scene already on the card: the
+    last stdout line is its JSON line with bench.py's four keys and a
+    finite positive value, no ray dropped, the selfcheck above 0.999, and
+    the timed steps launched the route's two cluster kernels and no plain
+    version, brute oracle or bvh traversal (the counts are zeroed before
+    the timed steps and read after them)."""
+    import contextlib
+    import io
+    import math
+
+    from fovtrace_torch import bench
+
+    for label, name, flags in BENCH_RUNS:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = bench.run(["--scene", name, "--width", str(W), "--height",
+                             str(H), "--iters", "5", "--warmup", "1", *flags],
+                            scene=scenes[name])
+        lines = out.getvalue().splitlines()
+        line = json.loads(lines[-1])
+        wall = time.perf_counter() - t0
+        print(f"[bench] {label}: {lines[-1]}  [{card}]")
+        assert sorted(line) == BENCH_KEYS, line
+        assert math.isfinite(line["value"]) and line["value"] > 0, line
+        assert res["rays_dropped"] == 0, res
+        if "--selfcheck" in flags:
+            assert res["selfcheck"] > 0.999, res["selfcheck"]
+        route = "" if name == "earth" else "_stream"
+        other = "_stream" if name == "earth" else ""
+        path_launches(f"bench {label}", res["per_step"],
+                      (f"closest_hit{route}", f"occlusion{route}"))
+        for k in (f"closest_hit{other}", f"occlusion{other}"):
+            assert k not in res["per_step"], (label, res["per_step"])
+        ms = res["step_ms"]
+        pad = res["padding"]
+        print(f"[bench] {label}: {res['ms']:.2f} ms/step (host clock, mean), "
+              f"stream time per step median {float(np.median(ms)):.2f} / min "
+              f"{min(ms):.2f} / max {max(ms):.2f} ms, peak device memory "
+              f"{res['peak_gib']:.2f} GiB, rays_traced {res['rays_traced']} "
+              f"(ray_count {res['ray_count']}), {pad['padding']} padding "
+              f"slots in bounce 0 of which {pad['continuing']} continue, "
+              f"selfcheck {res['selfcheck']}, camera inverse round trips "
+              f"per step {res['inv4_per_step']:g}; run {wall:.1f} s  [{card}]")
 
 
 def main_path(label, scene_name, scene, cam, card, extra=()):
@@ -2372,6 +2427,10 @@ def main() -> int:
     assert per_c["closest_hit"] == 0 and per_c["occlusion"] == 0
     fwd_bwd_profile("main city fwd+bwd", lambda: pipeline.grad_step(
         city, cam, (H // 2, W // 2), st_c, cfg_c), step_c, card)
+
+    # ---- fovtrace_torch.bench, bench.py's twin ------------------------------
+    ph.start("bench")
+    bench_phase({"earth": earth, "city": city}, card)
 
     ph.start("profile")
     frame_profile("earth", earth, cam, cfg_e, steady_e, card)

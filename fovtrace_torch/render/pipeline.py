@@ -153,21 +153,16 @@ def stage_compact(mask, config: RenderConfig):
     return idx, active, rank, gate
 
 
-def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
-                state: FrameState, config: RenderConfig, gaze_target, rank,
-                gate, y0: int = 0):
-    """Foveated path trace of the compacted rays and the temporal
-    accumulate. Returns ((shading rgb, alpha), history [4,H,W],
-    traced mask [H,W], rays_traced). A row-sharded tile passes its first
-    row `y0` (its pixel ids `idx` are then local to its [bh, W] rows):
-    seeds and jitter come from the global pixel ids, so every tiling
-    traces the same rays."""
+def shade_front(camera: Camera, idx, fetched, is_valid, state: FrameState,
+                config: RenderConfig, gaze_target, y0: int = 0):
+    """The compacted front's rays, one per budget slot (pixel ids `idx`,
+    the padding slots' too): (origins, dirs, seeds), jittered in the
+    pixel and seeded from the global pixel id and, where history exists,
+    the frame."""
     h, w = config.height, config.width
-    bh = is_valid.shape[0]
     gidx = idx + y0 * w
     py = (gidx // w).to(torch.float32)
     px = (gidx % w).to(torch.float32)
-    c_history = reproject.history_from_fetch(fetched, is_valid)
     hrows = fetched[idx].T                                 # [5, budget]
     vray = is_valid.reshape(-1)[idx] > 0.0
     hist_count = torch.where(vray, hrows[3], 0.0)
@@ -187,7 +182,22 @@ def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
         focus = torch.linalg.vector_norm(gaze_target - camera.eye)
         origins, dirs = camera.thin_lens_perturb_v(dirs, focus,
                                                    config.lens_radius, u1, u2)
+    return origins, dirs, seeds
 
+
+def stage_shade(scene, camera: Camera, idx, active, fetched, is_valid,
+                state: FrameState, config: RenderConfig, gaze_target, rank,
+                gate, y0: int = 0):
+    """Foveated path trace of the compacted rays and the temporal
+    accumulate. Returns ((shading rgb, alpha), history [4,H,W],
+    traced mask [H,W], rays_traced). A row-sharded tile passes its first
+    row `y0` (its pixel ids `idx` are then local to its [bh, W] rows):
+    seeds and jitter come from the global pixel ids, so every tiling
+    traces the same rays."""
+    bh, w = is_valid.shape
+    c_history = reproject.history_from_fetch(fetched, is_valid)
+    origins, dirs, seeds = shade_front(camera, idx, fetched, is_valid, state,
+                                       config, gaze_target, y0)
     radiance, shade_aux = shade_mod.shade_v(scene, origins, dirs, seeds,
                                             config, active=active)
     tm = radiance.map(lambda c: colorx.uncharted2_tonemap(

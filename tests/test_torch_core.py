@@ -88,6 +88,40 @@ def test_camera_rays_and_reprojection(pose):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("size", [(48, 32), (32, 48)])
+@pytest.mark.parametrize("mode", ["ortho", "ortho_width", "ortho_height"])
+def test_ortho_rays_and_reprojection(mode, size):
+    """The three orthographic modes (a static field of the reference's
+    camera) at test_camera_rays_and_reprojection's bounds; fov_y is then
+    the view's world extent."""
+    w, h = size
+    eye, target = POSES[0]
+    cj = JCamera.create(eye=eye, target=target, fov_y=4.0, mode=mode)
+    ct = Camera.create(eye=eye, target=target, fov_y=4.0, mode=mode,
+                       device="cpu")
+    np.testing.assert_allclose(ct.inv_mvp(w / h).numpy(),
+                               np.asarray(cj.inv_mvp(w / h)), rtol=1e-5,
+                               atol=1e-6)
+    oj, dj = cj.primary_rays_v(w, h)
+    ot, dt = ct.primary_rays_v(w, h)
+    for a, b in zip(dt, dj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+    for a, b in zip(ot, oj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
+    # orthographic rays share one direction (to rounding) and start
+    # across the image plane
+    assert float(dt.x.std()) < 1e-6 and float(ot.x.std()) > 0.1
+
+    p = np.random.default_rng(6).normal(size=(3, 500)).astype(np.float32)
+    uj, vj = cj.world_to_screen_v(jvec.Vec3(*map(jnp.asarray, p)), w, h)
+    ut, vt = ct.world_to_screen_v(vec.Vec3(*map(torch.as_tensor, p)), w, h)
+    np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-5,
+                               atol=1e-4)
+
+
 def test_thin_lens_perturb():
     r = np.random.default_rng(3)
     d = r.normal(size=(3, 256)).astype(np.float32)
