@@ -5,10 +5,11 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero):
   card           require CUDA; print the card's name and power limit
-  build          compile the CUDA kernels from fovtrace_torch/csrc; each
-                 kernel's registers and spills from the log kept beside
-                 its library, whichever process built it (none allowed
-                 in the render path's four cluster kernel builds)
+  build          compile the CUDA kernels from fovtrace_torch/csrc (three
+                 libraries, one nvcc each, in parallel); each kernel's
+                 registers and spills from the log kept beside its
+                 library, whichever process built it (none allowed in
+                 the render path's four cluster kernel builds)
   kernels earth  the resident kernels against their plain PyTorch
                  versions (earth: 4,096 seeded random rays, the primary
                  rays and the G-buffer shadow rays of a 256x256 frame);
@@ -32,6 +33,7 @@ non-zero):
   main earth     the CLI's render path on earth at 1920x1088 with the
                  bench configuration, 3 frames of the circle gaze; counts
                  kernel launches and plain/brute calls during that run
+                 (the material gather launched, its adjoint not)
   main city      the same on city, through the streaming kernels
   profile        per-stage times (render.staged: a synchronise after each
                  stage, the reference's report names GB, Sampling,
@@ -73,16 +75,32 @@ non-zero):
                  of the mean image with respect to emission, kd, eye and
                  target) on earth at 1920x1088, one warm and 3 timed steps:
                  ms/step, Mrays/s (the forward's rays_traced), peak memory,
-                 gradient norms (finite, nonzero), launches per step, the
-                 camera inverse's host round trips per step; then a
-                 torch.profiler summary of one step (forward and backward
-                 device time, busy share, the costliest backward functions)
+                 gradient norms (finite, nonzero), launches per step (the
+                 material gather and adjoint among them), the camera
+                 inverse's host round trips per step; then a torch.profiler
+                 summary of one step (forward and backward device time,
+                 busy share, the costliest backward functions, each tied
+                 to the forward source line that made its autograd node,
+                 and IndexBackward0 by forward source: none may come from
+                 material_lookup_v)
   main earth fwd+bwd remat
                  the same with remat_shade: peak memory beside the run
                  without, one more closest-hit and occlusion launch per
-                 bounce, gradients within rtol 1e-4
+                 bounce (and two more material gathers), gradients within
+                 rtol 1e-4
   main city fwd+bwd
                  the fwd+bwd step on city through the streaming kernels
+  material       the material table's gather and adjoint (csrc/material.cu)
+                 against their plain versions at the CPU tests' shapes
+                 (4,096 rays, K 21 and 4, M 4 and 24, one material, most
+                 lanes misses) and the seeded 1920x1088 front, then at the
+                 three lookups of an earth bench frame (the G-buffer's,
+                 bounce 0's surface and shade): the gather bit for bit,
+                 the adjoint within 1e-5 x sum |g| of each entry's lanes
+                 and equal on two runs; at the frame's shapes each
+                 kernel's time beside its plain version's, its bytes
+                 bound, and the library calls (index_select, index_add_,
+                 the aten gather's backward)
   bench          `python -m fovtrace_torch.bench`'s run (bench.py's twin),
                  in this process at 1920x1088, --iters 5 --warmup 1: earth
                  fwd+bwd --selfcheck, earth --forward-only and city
@@ -164,27 +182,38 @@ non-zero):
                  diffuse_max_depth 1, reconstruction none), one warm and
                  two timed each: ms/step, peak memory, Mrays/s, loss,
                  gradient norms (finite; nonzero, but gaze_uv's in the
-                 dense step), launches per step, and a torch.profiler
-                 summary of a step (forward and backward device time)
+                 dense step), launches per step (the material kernels
+                 launched), and a torch.profiler summary of a step as in
+                 main earth fwd+bwd (the envmap taps' IndexBackward0,
+                 trained in this step, among its backward)
   optimize       `python -m fovtrace_torch.app.optimize --scene box` with
                  --ckpt: 60 steps at 128x128 (the loss falls; its exit
                  code printed), 80 on the same directory (resumes at 60),
                  40 then 60 on another, whose step-60 parameters equal the
                  first run's (rtol 1e-6), and tests/test_checkpoint.py's
-                 32x32 8-step run (exit 0)
-Neither probe runs on a render path: their kernels' launches on the main
-paths are 0.
+                 32x32 8-step run (exit 0); each run launched the material
+                 kernels and no plain version
+No plain version, brute oracle or bvh traversal runs on any card path
+(PATH_PLAIN). Neither probe runs on a render path: their kernels'
+launches on the main paths are 0.
 
     python3 chip_smoke.py --probe-times [ROOT]
 
 times only the two probes' kernels, of this checkout or of the one at
 ROOT (a parent's `git archive`), by their device time and their call.
+
+    python3 chip_smoke.py --attribution [ROOT]
+
+runs only the earth fwd+bwd step and the two train steps, each with its
+attributed profile, of this checkout or of the one at ROOT.
 The line before last is the card's name and power limit, the one before
 it the kernels' JSON line, and the last line is the JSON result.
 """
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
 import json
 import os
@@ -207,13 +236,29 @@ RES = 256              # the kernel checks' and parity frames' side
 NCHK = 4096            # seeded random rays per kernel check
 SRC = "fovtrace_torch/csrc/cluster_isect.cu"
 PROBE_SRC = "fovtrace_torch/csrc/probes.cu"
+MATERIAL_SRC = "fovtrace_torch/csrc/material.cu"
 REPLACES = {"closest_hit": "fovtrace/kernels/pallas_isect.py:518",
             "occlusion": "fovtrace/kernels/pallas_isect.py:806",
             "closest_hit_stream": "fovtrace/kernels/pallas_isect.py:577",
             "occlusion_stream": "fovtrace/kernels/pallas_isect.py:850",
             "micro_inner": "scripts/microbench_inner.py:70",
-            "smem_dma": "scripts/probe_smem_dma.py:23"}
+            "smem_dma": "scripts/probe_smem_dma.py:23",
+            # the material table's lookup (no Pallas kernel: a select
+            # chain / row gather) and its gradient with respect to the table
+            "material_lookup": "fovtrace/kernels/intersect.py:401",
+            "material_lookup_adjoint": "fovtrace/kernels/intersect.py:401"}
 KERNELS = tuple(REPLACES)
+SOURCES = {**dict.fromkeys(KERNELS[:4], SRC),
+           **dict.fromkeys(KERNELS[4:6], PROBE_SRC),
+           **dict.fromkeys(KERNELS[6:], MATERIAL_SRC)}
+# the launch counters of the material kernels, by their JSON names
+MATERIAL_COUNTERS = {"material_lookup": "material_gather",
+                     "material_lookup_adjoint": "material_adjoint"}
+# plain versions, brute oracles and bvh traversals: no card path may run
+# one (their counters must stay 0)
+PATH_PLAIN = ("closest_hit_plain", "occlusion_plain", "intersect_brute",
+              "occlusion_brute", "intersect_bvh", "occlusion_bvh",
+              "material_gather_plain", "material_adjoint_plain")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32 = 67e12
@@ -620,7 +665,6 @@ def bench_phase(scenes, card):
     the timed steps launched the route's two cluster kernels and no plain
     version, brute oracle or bvh traversal (the counts are zeroed before
     the timed steps and read after them)."""
-    import contextlib
     import io
     import math
 
@@ -645,7 +689,10 @@ def bench_phase(scenes, card):
         route = "" if name == "earth" else "_stream"
         other = "_stream" if name == "earth" else ""
         path_launches(f"bench {label}", res["per_step"],
-                      (f"closest_hit{route}", f"occlusion{route}"))
+                      (f"closest_hit{route}", f"occlusion{route}",
+                       "material_gather",
+                       *(() if "--forward-only" in flags else
+                         ("material_adjoint",))))
         for k in (f"closest_hit{other}", f"occlusion{other}"):
             assert k not in res["per_step"], (label, res["per_step"])
         ms = res["step_ms"]
@@ -693,9 +740,8 @@ def main_path(label, scene_name, scene, cam, card, extra=()):
     assert max(stats["rays_dropped"]) == 0, "the budget truncated the mask"
     assert bool(torch.isfinite(img).all()), "non-finite image"
     assert 0.05 < mean < 0.95, f"implausible frame mean {mean}"
-    for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
-              "occlusion_brute", "intersect_bvh", "occlusion_bvh"):
-        assert counts[k] == 0, (k, counts)
+    for k in PATH_PLAIN:
+        assert counts.get(k, 0) == 0, (k, counts)
     assert not probe_calls(), probe_calls()
     print(f"[{label}] peak device memory {peak:.2f} GiB  [{card}]")
     for f, (ms, rays) in enumerate(zip(stats["frame_ms"],
@@ -1348,9 +1394,8 @@ def fwd_bwd(label, scene, cam, cfg, card, steps):
     for k, g in grads.items():
         assert bool(torch.isfinite(g).all()), (k, g)
         assert float(g.abs().sum()) > 0, f"zero gradient for {k}"
-    for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
-              "occlusion_brute"):
-        assert counts[k] == 0, (k, counts)
+    for k in PATH_PLAIN:
+        assert counts.get(k, 0) == 0, (k, counts)
     return grads, steady, st, per_step, peak
 
 
@@ -1362,19 +1407,98 @@ def _parents(e):
         p = p.cpu_parent
 
 
+BWD_TAG = "autograd::engine::evaluate_function: "
+
+
+def _port_frame(traceback_lines):
+    """"fovtrace_torch/<file>:<line> <function>" of the innermost frame
+    in the port's package of a formatted Python stack, else None."""
+    for line in reversed(traceback_lines or ()):
+        m = re.search(r'File "[^"]*/fovtrace_torch/([^"]+)", line (\d+), '
+                      r"in (\S+)", line)
+        if m:
+            return f"fovtrace_torch/{m.group(1)}:{m.group(2)} {m.group(3)}"
+    return None
+
+
+@contextlib.contextmanager
+def recording_sources(sources: dict):
+    """Inside the block, autograd keeps each node's forward Python stack
+    (anomaly mode, without its NaN checks), and every backward pass
+    (torch.autograd.backward, which Tensor.backward calls, or
+    torch.autograd.grad) first walks its graph and records, by each
+    node's sequence number, the innermost frame of the port that made
+    it (`_port_frame`) into `sources`. A backward function's profiler
+    event carries the same sequence number. (The card's PyTorch records
+    no Python frames in a with_stack profile.)"""
+    real_backward, real_grad = torch.autograd.backward, torch.autograd.grad
+
+    def walk(roots):
+        roots = [roots] if isinstance(roots, torch.Tensor) else list(roots)
+        todo = [t.grad_fn for t in roots if t.grad_fn is not None]
+        seen = set()
+        while todo:
+            node = todo.pop()
+            key = (node.name(), node._sequence_nr())
+            if key in seen:
+                continue
+            seen.add(key)
+            sources.setdefault(key[1], _port_frame(
+                node.metadata.get("traceback_")))
+            todo.extend(f for f, _ in node.next_functions if f is not None)
+
+    def backward(tensors, *args, **kwargs):
+        walk(tensors)
+        return real_backward(tensors, *args, **kwargs)
+
+    def grad(outputs, *args, **kwargs):
+        walk(outputs)
+        return real_grad(outputs, *args, **kwargs)
+
+    torch.autograd.backward, torch.autograd.grad = backward, grad
+    try:
+        with torch.autograd.set_detect_anomaly(True, check_nan=False):
+            yield
+    finally:
+        torch.autograd.backward, torch.autograd.grad = real_backward, \
+            real_grad
+
+
+def backward_attribution(prof, sources: dict) -> dict:
+    """{(backward function, forward source): [device ms, calls]}: each
+    top-level backward function of a profile (autograd's
+    evaluate_function events; one nested in another counts in its outer
+    one) with its device time, and the source that made its node, by
+    sequence number (`recording_sources`)."""
+    out = {}
+    for e in prof.events():
+        if e.name.startswith(BWD_TAG) and not any(
+                p.name.startswith(BWD_TAG) for p in _parents(e)):
+            key = (e.name[len(BWD_TAG):],
+                   sources.get(e.sequence_nr) or "(no source in the port)")
+            acc = out.setdefault(key, [0.0, 0])
+            acc[0] += (e.device_time_total if hasattr(e, "device_time_total")
+                       else e.cuda_time_total) / 1e3
+            acc[1] += 1
+    return out
+
+
 def fwd_bwd_profile(label, step, steady_ms, card):
     """torch.profiler over one fwd+bwd step (`step()`): device kernels,
     summed device time split into forward and backward (the backward is
     what runs under autograd's evaluate_function events, a remat
     recompute included), the device's busy share of the unprofiled step,
-    and the backward functions with the most device time."""
+    and the backward functions with the most device time, each with the
+    forward source line whose op made it (`recording_sources`,
+    `backward_attribution`). Returns that attribution."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    sources = {}
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof, recording_sources(sources):
         step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
@@ -1382,26 +1506,183 @@ def fwd_bwd_profile(label, step, steady_ms, card):
             if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     total = sum(dev_us(e) for e in kern) / 1e3
     launched = sum(e.count for e in kern)
-    tag = "autograd::engine::evaluate_function: "
-    bwd = {}
-    for e in prof.events():
-        if e.name.startswith(tag) and not any(
-                p.name.startswith(tag) for p in _parents(e)):
-            dt = (e.device_time_total if hasattr(e, "device_time_total")
-                  else e.cuda_time_total) / 1e3
-            bwd[e.name[len(tag):]] = bwd.get(e.name[len(tag):], 0.0) + dt
-    bwd_ms = sum(bwd.values())
+    bwd = backward_attribution(prof, sources)
+    bwd_ms = sum(ms for ms, _ in bwd.values())
     print(f"[{label} profile] one step: {launched} device kernels, summed "
           f"device time {total:.2f} ms (forward {total - bwd_ms:.2f}, "
           f"backward {bwd_ms:.2f}) in a {wall:.2f} ms wall with the profiler "
           f"on; device busy {100 * total / steady_ms:.1f}% of the "
           f"{steady_ms:.2f} ms steady step  [{card}]")
-    for name, ms in sorted(bwd.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"[{label} profile]   backward {ms:8.2f} ms  {name[:80]}")
+    for (name, src), (ms, n) in sorted(bwd.items(),
+                                       key=lambda kv: -kv[1][0])[:10]:
+        print(f"[{label} profile]   backward {ms:8.2f} ms {n:4d} x "
+              f"{name[:40]} <- {src}")
+    index = {src: v for (name, src), v in bwd.items()
+             if name == "IndexBackward0"}
+    print(f"[{label} profile] IndexBackward0 by forward source: " + (
+        "; ".join(f"{src}: {ms:.2f} ms in {n}" for src, (ms, n) in
+                  sorted(index.items(), key=lambda kv: -kv[1][0]))
+        or "none") + f"  [{card}]")
     top = sorted(kern, key=lambda e: -dev_us(e))[:6]
     for e in top:
         print(f"[{label} profile]   kernel {dev_us(e) / 1e3:8.2f} ms "
               f"{e.count:5d} x {e.key[:80]}")
+    return bwd
+
+
+# ---- the material table's lookup and its adjoint (csrc/material.cu) ------
+# the CPU tests' shapes (tests/test_torch_material.py): (rays, materials,
+# how the ids are drawn) at the shade's K = 21 and the surface's K = 4;
+# then the bench front, seeded
+MATERIAL_CASES = {"select-chain": (NCHK, 4, "uniform"),
+                  "row-gather": (NCHK, 24, "uniform"),
+                  "one-material": (NCHK, 4, "one"),
+                  "misses": (NCHK, 4, "misses"),
+                  "bench-front": (W * H, 4, "misses")}
+
+
+def material_inputs(n, m, how, k, seed=SEED):
+    """(ids [n] int32, table [m, k], cotangent [k, n]) on the card from a
+    numpy seed; misses are clamped to row 0, as the render path does."""
+    r = np.random.default_rng(seed)
+    mat_id = r.integers(0, m, size=n).astype(np.int32)
+    if how == "one":
+        mat_id[:] = m - 2
+    elif how == "misses":
+        mat_id[r.random(n) < 0.7] = -1
+    ids = torch.tensor(np.maximum(mat_id, 0), dtype=torch.int32,
+                       device=DEVICE)
+    table = torch.tensor(r.normal(size=(m, k)).astype(np.float32),
+                         device=DEVICE)
+    g = torch.tensor(r.normal(size=(k, n)).astype(np.float32), device=DEVICE)
+    return ids, table, g
+
+
+def capture_lookups(scene, cam, cfg):
+    """The (ids, table) of each material lookup of one bench frame, in
+    call order: [0] the G-buffer's surface columns (K = 4), then per
+    bounce the surface's and the shade's (K = 21)."""
+    from fovtrace_torch.kernels import material
+    from fovtrace_torch.render import pipeline
+
+    got, real = [], material.gather
+
+    def recorder(ids, table):
+        got.append((ids.clone(), table.detach().clone()))
+        return real(ids, table)
+
+    material.gather = recorder
+    try:
+        with torch.no_grad():
+            pipeline.render_frame(scene, cam, (H // 2, W // 2),
+                                  pipeline.FrameState.initial(cam, cfg), cfg)
+        torch.cuda.synchronize()
+    finally:
+        material.gather = real
+    return got
+
+
+def check_material(label, ids, table, g):
+    """The gather bit for bit its plain version; the adjoint within 1e-5
+    x sum |g| of each entry's lanes, and the same bits on a second run.
+    Returns (gather max abs err, adjoint max abs err, the adjoint's
+    largest error over its tolerance)."""
+    from fovtrace_torch.kernels import material
+
+    m = table.shape[0]
+    got = material.gather(ids, table)
+    adj = [material.adjoint(ids, g, m) for _ in range(2)]
+    torch.cuda.synchronize()
+    want_g = material.gather_plain(ids, table)
+    want_a = material.adjoint_plain(ids, g, m)
+    scale = material.adjoint_plain(ids, g.abs(), m)
+    g_err = float((got - want_g).abs().max())
+    diff = (adj[0] - want_a).abs()
+    a_err = float(diff.max())
+    over = float((diff / (1e-5 * scale).clamp_min(1e-30)).max())
+    same = torch.equal(adj[0], adj[1])
+    print(f"[material] {label}: N {ids.shape[0]}, M {m}, K {table.shape[1]}: "
+          f"gather max abs err {g_err:.3e} (bit for bit "
+          f"{torch.equal(got, want_g)}), adjoint max abs err {a_err:.3e}, "
+          f"{over:.3f} of the 1e-5 x sum |g| tolerance at worst, two runs "
+          f"equal {same}")
+    assert torch.equal(got, want_g), label
+    assert bool((diff <= 1e-5 * scale).all()), label
+    assert same, label
+    return g_err, a_err, over
+
+
+def material_bound(n, m, k) -> float:
+    """ms to move what the gather (or the adjoint) must: n ids read, k x
+    n floats written (read), the [m, k] table read (written), over the
+    HBM rate; its operations (none, or one add per value) take far
+    less at the float32 peak."""
+    return (4 * n + 4 * k * n + 4 * m * k) / PEAK_BYTES * 1e3
+
+
+def material_phase(earth, cam, cfg, card):
+    """The material kernels against their plain versions at the CPU
+    tests' shapes, the seeded bench front and the lookups of one earth
+    bench frame (its G-buffer front and bounce 0's two); at the frame's
+    shapes each kernel's time (CUDA events, 20 calls), its plain
+    version's, its bound, and the library calls that compute the same:
+    index_select + .T.contiguous() for the gather, index_add_ and the
+    aten gather's backward (IndexBackward0) for the adjoint. Returns
+    ({JSON name: (ms, plain_ms, bound_ms, bound_by, library_ms)}, {JSON
+    name: max abs err})."""
+    from fovtrace_torch.kernels import material
+
+    errs = {"material_lookup": 0.0, "material_lookup_adjoint": 0.0}
+    for case, (n, m, how) in MATERIAL_CASES.items():
+        for k in (21, 4):
+            ge, ae, _ = check_material(f"{case} K {k}",
+                                       *material_inputs(n, m, how, k))
+            errs["material_lookup"] = max(errs["material_lookup"], ge)
+            errs["material_lookup_adjoint"] = max(
+                errs["material_lookup_adjoint"], ae)
+    lookups = capture_lookups(earth, cam, cfg)
+    shapes = {"G-buffer": lookups[0], "bounce-0 surface": lookups[1],
+              "bounce-0 shade": lookups[2]}
+    assert [t.shape[1] for _, t in shapes.values()] == [4, 4, 21], \
+        [t.shape for _, t in shapes.values()]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = {}
+    for label, (ids, table) in shapes.items():
+        n, (m, k) = ids.shape[0], table.shape
+        g = torch.randn((k, n), generator=gen, device=DEVICE)
+        ge, ae, _ = check_material(f"{label} of the earth bench frame", ids,
+                                   table, g)
+        errs["material_lookup"] = max(errs["material_lookup"], ge)
+        errs["material_lookup_adjoint"] = max(
+            errs["material_lookup_adjoint"], ae)
+        lids = ids.long()
+        leaf = table.clone().requires_grad_(True)
+        gT = g.T
+        times = {
+            "gather": cuda_ms(lambda: material.gather(ids, table), iters=20),
+            "gather plain": cuda_ms(lambda: material.gather_plain(ids, table),
+                                    iters=3),
+            "index_select": cuda_ms(lambda: torch.index_select(
+                table, 0, lids).T.contiguous(), iters=20),
+            "adjoint": cuda_ms(lambda: material.adjoint(ids, g, m), iters=20),
+            "adjoint plain": cuda_ms(
+                lambda: material.adjoint_plain(ids, g, m), iters=3),
+            "index_add_": cuda_ms(lambda: torch.zeros(
+                (m, k), device=DEVICE).index_add_(0, lids, gT), iters=20),
+            "IndexBackward0": cuda_ms(lambda: torch.autograd.grad(
+                leaf[lids], leaf, gT), iters=3)}
+        bound_ms = material_bound(n, m, k)
+        print(f"[material] {label} N {n}, M {m}, K {k}: " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in times.items())
+            + f" ms; bound {bound_ms:.4f} ms (bytes) each way  [{card}]")
+        rows[label] = (times, bound_ms)
+    times, bound_ms = rows["G-buffer"]
+    row = {"material_lookup": (times["gather"], times["gather plain"],
+                               bound_ms, "bytes", times["index_select"]),
+           "material_lookup_adjoint": (
+               times["adjoint"], times["adjoint plain"], bound_ms, "bytes",
+               times["index_add_"])}
+    return row, errs
 
 
 def golden_grad_parity(earth, cam):
@@ -1512,8 +1793,6 @@ QUALITY_FRAMES, QUALITY_WARMUP = 20, 8
 # versions on a CPU (fixed centre gaze, aperture 0.07, two frames; the
 # JAX reference's masks are the same bit for bit)
 CPU_RAY_PCT = 12.95
-PATH_PLAIN = ("closest_hit_plain", "occlusion_plain", "intersect_brute",
-              "occlusion_brute", "intersect_bvh", "occlusion_bvh")
 
 
 def path_launches(label, counts, kernels=("closest_hit", "occlusion")):
@@ -1712,9 +1991,8 @@ def dist_one_rank(label, scene, cam, cfg, mesh, card, frames, exact=True):
               f"differ {normals}, image MAE {float(err.mean()):.3e} max "
               f"{float(err.max()):.3e}, rays_traced {int(on['rays_traced'])} "
               f"/ {int(o1['rays_traced'])}  [{card}]")
-    for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
-              "occlusion_brute"):
-        assert counts[k] == 0, (k, counts)
+    for k in PATH_PLAIN:
+        assert counts.get(k, 0) == 0, (k, counts)
     print(f"[{label}] launches in the {frames} sharded frames: "
           f"{json.dumps(counts)}")
     if frames > 1:
@@ -1948,9 +2226,8 @@ def train_steps(earth, mesh, card, steps=2):
                 assert norms[k] == 0.0, (label, k)   # the dense render
             else:
                 assert norms[k] > 0.0, (label, k)
-        for k in ("closest_hit_plain", "occlusion_plain", "intersect_brute",
-                  "occlusion_brute"):
-            assert counts[k] == 0, (k, counts)
+        for k in PATH_PLAIN:
+            assert counts.get(k, 0) == 0, (k, counts)
         assert counts["closest_hit"] > 0 and counts["occlusion"] > 0, counts
         per_step[label] = counts
         fwd_bwd_profile(label, lambda: loss_and_grad(params, target, 3),
@@ -1986,6 +2263,13 @@ def optimize_runs(tmp, card):
                   or "resumed" in line or "launches" in line))
         assert p.returncode in (0, 1) and "done in" in p.stderr, \
             p.stderr[-3000:]
+        # the run's kernel launches: the material kernels on its steps,
+        # and no plain version
+        launched, = [ast.literal_eval(line.split(": ", 1)[1]) for line in lines
+                     if "kernel launches and plain calls" in line]
+        assert launched.get("material_gather", 0) > 0 and \
+            launched.get("material_adjoint", 0) > 0, launched
+        assert not set(PATH_PLAIN) & set(launched), launched
         return p.returncode, p.stderr
 
     whole, cut = os.path.join(tmp, "whole"), os.path.join(tmp, "cut")
@@ -2222,7 +2506,8 @@ def bvh_phase(earth, cam, card):
     assert calls["intersect_bvh"] > 0 and calls["occlusion_bvh"] > 0
     for k in ("closest_hit", "occlusion", "closest_hit_stream",
               "occlusion_stream", "closest_hit_plain", "occlusion_plain",
-              "intersect_brute", "occlusion_brute"):
+              "intersect_brute", "occlusion_brute", "material_gather_plain",
+              "material_adjoint_plain"):
         assert cb[k] == 0, (k, cb)
     assert torch.equal(b["mask"], c["mask"])
     assert int(b["ray_count"]) == int(c["ray_count"])
@@ -2292,6 +2577,51 @@ def probe_times(root: str) -> int:
     return 0
 
 
+def attribution(root: str) -> int:
+    """`python3 chip_smoke.py --attribution [ROOT]`: the checkout at
+    ROOT's (this file's own by default; a parent's `git archive` to
+    compare with) earth fwd+bwd step at W x H in the bench configuration
+    (`fwd_bwd`, 3 timed steps) and the dense and foveated train steps
+    (`train_steps`, on a process group of one), each with a profile that
+    ties every backward function to the forward source line that made it
+    (`fwd_bwd_profile`). It uses only entry points that the port has had
+    since its training path, so a parent's package and the change's are
+    measured alike."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import fovtrace_torch
+    from fovtrace_torch.config import pin_fp32
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.dist import launch
+    from fovtrace_torch.dist import sharding as shd
+    from fovtrace_torch.render import pipeline
+    from fovtrace_torch.scene import procedural
+
+    assert fovtrace_torch.__file__.startswith(root + os.sep), \
+        fovtrace_torch.__file__
+    dev = torch.device(DEVICE)
+    pin_fp32(dev)
+    card = card_line()
+    print(f"[attribution] {os.path.dirname(fovtrace_torch.__file__)}  "
+          f"[{card}]", flush=True)
+    cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                        device=dev)
+    earth = procedural.earth_scene(dev)
+    _, _, cfg = bench_probe_frac(earth, cam)
+    _, step, st, _, _ = fwd_bwd("attribution earth fwd+bwd", earth, cam, cfg,
+                                card, steps=3)
+    fwd_bwd_profile("attribution earth fwd+bwd", lambda: pipeline.grad_step(
+        earth, cam, (H // 2, W // 2), st, cfg), step, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_attribution_")
+    try:
+        launch.init_distributed(f"file://{tmp}/rdzv", 1, 0, device=dev)
+        train_steps(earth, shd.make_mesh(1, dev), card)
+    finally:
+        launch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
@@ -2299,13 +2629,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    here = os.path.dirname(os.path.abspath(__file__))
     if len(sys.argv) > 1 and sys.argv[1] == "--probe-times":
-        return probe_times(sys.argv[2] if len(sys.argv) > 2 else
-                           os.path.dirname(os.path.abspath(__file__)))
+        return probe_times(sys.argv[2] if len(sys.argv) > 2 else here)
+    if len(sys.argv) > 1 and sys.argv[1] == "--attribution":
+        return attribution(sys.argv[2] if len(sys.argv) > 2 else here)
     from fovtrace_torch import _build
     from fovtrace_torch.config import RenderConfig, pin_fp32
     from fovtrace_torch.core.camera import Camera
     from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.kernels import material
     from fovtrace_torch.render import pipeline
     from fovtrace_torch.scene import procedural
     from fovtrace_torch.scripts import load_probe_library
@@ -2324,9 +2657,10 @@ def main() -> int:
     ph.start("build")
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(2) as pool:
-        libs = [f.result()._name for f in [pool.submit(ci.load_cuda_library),
-                                           pool.submit(load_probe_library)]]
+    with ThreadPoolExecutor(3) as pool:
+        libs = [f.result()._name for f in [
+            pool.submit(ci.load_cuda_library), pool.submit(load_probe_library),
+            pool.submit(material.load_cuda_library)]]
     print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.2f} s")
     logs = [_build.build_log(lib) for lib in libs]
     for lib, log in zip(libs, logs):
@@ -2386,12 +2720,16 @@ def main() -> int:
     assert counts_e["closest_hit"] > 0 and counts_e["occlusion"] > 0
     assert counts_e["closest_hit_stream"] == 0 and \
         counts_e["occlusion_stream"] == 0
+    # a forward frame looks the table up and builds no backward
+    assert counts_e["material_gather"] > 0 and \
+        counts_e["material_adjoint"] == 0, counts_e
     ph.start("main city")
     counts_c, cfg_c, steady_c, _ = main_path("main city", "city", city, cam,
                                              card)
     assert counts_c["closest_hit_stream"] > 0 and \
         counts_c["occlusion_stream"] > 0
     assert counts_c["closest_hit"] == 0 and counts_c["occlusion"] == 0
+    assert counts_c["material_gather"] > 0, counts_c
     launches = {k: counts_e[k] for k in ("closest_hit", "occlusion")}
     launches.update({k: counts_c[k] for k in ("closest_hit_stream",
                                               "occlusion_stream")})
@@ -2402,8 +2740,15 @@ def main() -> int:
     g_e, step_e, st_e, per_e, peak_e = fwd_bwd("main earth fwd+bwd", earth,
                                                cam, cfg_e, card, steps=3)
     assert per_e["closest_hit"] > 0 and per_e["occlusion"] > 0, per_e
-    fwd_bwd_profile("main earth fwd+bwd", lambda: pipeline.grad_step(
+    assert per_e["material_gather"] > 0 and per_e["material_adjoint"] > 0, \
+        per_e
+    # the JSON line's material launches: the 3 timed fwd+bwd steps'
+    launches.update({name: round(3 * per_e[c])
+                     for name, c in MATERIAL_COUNTERS.items()})
+    bwd_e = fwd_bwd_profile("main earth fwd+bwd", lambda: pipeline.grad_step(
         earth, cam, (H // 2, W // 2), st_e, cfg_e), step_e, card)
+    assert not [key for key in bwd_e if key[0] == "IndexBackward0"
+                and "material_lookup_v" in key[1]], bwd_e
     ph.start("main earth fwd+bwd remat")
     remat = cfg_e.replace(remat_shade=True)
     g_r, step_r, _, per_r, peak_r = fwd_bwd("main earth fwd+bwd remat",
@@ -2411,6 +2756,9 @@ def main() -> int:
     # the backward runs every shade bounce again, its kernels included
     for k in ("closest_hit", "occlusion"):
         assert per_r[k] == per_e[k] + cfg_e.max_depth, (k, per_r, per_e)
+    # and every bounce's lookups (surface and shade) once more
+    assert per_r["material_gather"] == \
+        per_e["material_gather"] + 2 * cfg_e.max_depth, (per_r, per_e)
     worst = max(float(((g_r[k] - g_e[k]).abs()
                        / g_e[k].abs().clamp_min(1e-30)).max()) for k in g_e)
     print(f"[main earth fwd+bwd remat] peak memory {peak_r:.2f} GiB with "
@@ -2425,8 +2773,13 @@ def main() -> int:
                                         cfg_c, card, steps=2)
     assert per_c["closest_hit_stream"] > 0 and per_c["occlusion_stream"] > 0
     assert per_c["closest_hit"] == 0 and per_c["occlusion"] == 0
+    assert per_c["material_gather"] > 0 and per_c["material_adjoint"] > 0
     fwd_bwd_profile("main city fwd+bwd", lambda: pipeline.grad_step(
         city, cam, (H // 2, W // 2), st_c, cfg_c), step_c, card)
+
+    # ---- the material kernels against their plain versions ----------------
+    ph.start("material")
+    material_row, material_errs = material_phase(earth, cam, cfg_e, card)
 
     # ---- fovtrace_torch.bench, bench.py's twin ------------------------------
     ph.start("bench")
@@ -2476,6 +2829,9 @@ def main() -> int:
         micro["full"][4]
     row["smem_dma"], errs["smem_dma"] = dma_res[:4], dma_res[5]
     library = {"smem_dma": dma_res[4]}
+    for name, r in material_row.items():
+        row[name], library[name] = r[:4], r[4]
+    errs.update(material_errs)
 
     # ---- frame parity ---------------------------------------------------------
     ph.start("parity")
@@ -2567,7 +2923,10 @@ def main() -> int:
         one = small_dist_run(mesh, card)
         dist_two_ranks(one, tmp, card)
         ph.start("train")
-        train_steps(earth, mesh, card)
+        per_t = train_steps(earth, mesh, card)
+        for counts in per_t.values():
+            assert counts["material_gather"] > 0 and \
+                counts["material_adjoint"] > 0, counts
         launch.shutdown()
         ph.start("optimize")
         optimize_runs(tmp, card)
@@ -2577,8 +2936,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": PROBE_SRC if name in ("micro_inner", "smem_dma") else SRC,
+        {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name],
          "ms": row[name][0], "plain_ms": row[name][1],

@@ -126,7 +126,7 @@ def main(argv=None) -> int:
     log(f"[optimize] done in {wall:.1f}s ({ran} steps, {per_step}) | final "
         f"loss {loss_s} | eye error {err:.4f} (start {args.perturb:.3f})")
     launched = {k: v for k, v in ci.counters().items() if v}
-    log(f"[optimize] cluster kernel launches and plain calls: {launched}")
+    log(f"[optimize] kernel launches and plain calls: {launched}")
     if not had_group:
         launch.shutdown()
     return 0 if err < args.perturb else 1

@@ -47,6 +47,7 @@ from fovtrace_torch import _build, kernels
 from fovtrace_torch.config import pin_fp32
 from fovtrace_torch.core import vec
 from fovtrace_torch.core.vec import Vec3
+from fovtrace_torch.kernels import material
 from fovtrace_torch.kernels.intersect import BIG_T, DET_EPS, Hit
 
 CLUSTER = 128        # minimum triangles per cluster
@@ -702,7 +703,7 @@ def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None, *,
 COUNTED = ("closest_hit", "occlusion", "closest_hit_stream",
            "occlusion_stream", "closest_hit_plain", "occlusion_plain",
            "intersect_brute", "occlusion_brute", "intersect_bvh",
-           "occlusion_bvh")
+           "occlusion_bvh", *material.COUNTED)
 
 
 def reset_counters() -> None:
@@ -711,8 +712,8 @@ def reset_counters() -> None:
 
 
 def counters() -> dict:
-    """Kernel launches and plain-version / brute-oracle / bvh-traversal
-    calls so far."""
+    """Kernel launches (the material kernels' too) and plain-version /
+    brute-oracle / bvh-traversal calls so far."""
     return {k: kernels.CALLS[k] for k in COUNTED}
 
 

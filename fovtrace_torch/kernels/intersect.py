@@ -24,6 +24,7 @@ import torch
 from fovtrace_torch import kernels
 from fovtrace_torch.core import mathx, vec
 from fovtrace_torch.core.vec import Vec3
+from fovtrace_torch.kernels import material
 
 BIG_T = 1e30
 DET_EPS = 1e-12
@@ -227,14 +228,16 @@ def occlusion_v(scene, ro: Vec3, rd: Vec3, t_min, t_max,
 
 # --------------------------------------------------------------- shading IO
 def material_lookup_v(materials, safe_mat: torch.Tensor, columns) -> list:
-    """Fetch per-material columns for each ray with one row gather from
-    the concatenated [M, K] table. `columns` lists (name, width): width 3
+    """Fetch per-material columns for each ray from the concatenated
+    [M, K] table (`material.MaterialLookup`: the gather and its adjoint
+    as kernels on the card). `columns` lists (name, width): width 3
     returns a Vec3, width 1 an [N] tensor."""
     cols = []
     for name, width in columns:
         col = getattr(materials, name).to(torch.float32)
         cols.append(col[:, None] if col.ndim == 1 else col)
-    vals = torch.cat(cols, dim=1)[safe_mat.long()].T    # [K, N]
+    vals = material.MaterialLookup.apply(                  # [K, N]
+        safe_mat.to(torch.int32).contiguous(), torch.cat(cols, dim=1))
     out = []
     off = 0
     for _, width in columns:

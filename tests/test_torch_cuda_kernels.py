@@ -6,8 +6,10 @@ kernels on the city scene (M = 2), on earth forced to stream (bit for
 bit equal to the resident kernels), on multi forced to M = 16, on the
 same ties and warp exits, and with the ray blocks' split forced; then
 the probe kernels (csrc/probes.cu) on their default and forced grids,
-and the row-copy probe on each of its table paths. Seeded rays. Marked
-`cuda`; skipped without a GPU.
+and the row-copy probe on each of its table paths; then the material
+table's gather and adjoint (csrc/material.cu) at the CPU tests' shapes,
+at the 1920x1088 front and at the largest table they take. Seeded rays.
+Marked `cuda`; skipped without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -22,6 +24,7 @@ from fovtrace_torch import Camera, kernels
 from fovtrace_torch.core.vec import Vec3
 from fovtrace_torch.kernels import cluster_isect as ci
 from fovtrace_torch.kernels import intersect as isect
+from fovtrace_torch.kernels import material
 from fovtrace_torch.render import gbuffer
 from fovtrace_torch.scene import procedural
 from fovtrace_torch.scripts import MICRO_VARIANTS, forced_grid
@@ -567,3 +570,95 @@ def test_smem_dma_layout_matches_the_mirror(dev):
                                 lanes=dma.LANES, smem=dma.SMEM)
     for nsc in (1, 64, 666, 700, 701, 2048):
         assert dma.table_lanes(nsc) == dma.lane_slice(nsc)
+
+
+# ----------------------------------------------------- the material table
+MATERIAL_N = 4096
+BENCH_FRONT = 1920 * 1088     # the G-buffer's rays at 1920x1088
+# (rays, materials, how the ids are drawn): the CPU tests' shapes
+# (tests/test_torch_material.py) and the bench frame's front
+MATERIAL_CASES = {"select-chain": (MATERIAL_N, 4, "uniform"),
+                  "row-gather": (MATERIAL_N, 24, "uniform"),
+                  "one-material": (MATERIAL_N, 4, "one"),
+                  "misses": (MATERIAL_N, 4, "misses"),
+                  "bench-front": (BENCH_FRONT, 4, "misses")}
+
+
+def _material_inputs(dev, n, m, how, k, seed=0):
+    """(ids [n] int32, table [m, k], cotangent [k, n]) on the card from a
+    numpy seed; misses are clamped to row 0, as the render path does."""
+    r = np.random.default_rng(seed)
+    mat_id = r.integers(0, m, size=n).astype(np.int32)
+    if how == "one":
+        mat_id[:] = m - 2
+    elif how == "misses":
+        mat_id[r.random(n) < 0.7] = -1
+    ids = torch.tensor(np.maximum(mat_id, 0), dtype=torch.int32, device=dev)
+    table = torch.tensor(r.normal(size=(m, k)).astype(np.float32), device=dev)
+    g = torch.tensor(r.normal(size=(k, n)).astype(np.float32), device=dev)
+    return ids, table, g
+
+
+def _material_scale(ids, g, m):
+    """[m, k]: sum |g| of each entry's lanes, the adjoint's tolerance."""
+    return material.adjoint_plain(ids, g.abs(), m)
+
+
+@pytest.mark.parametrize("k", [4, 21])
+@pytest.mark.parametrize("case", list(MATERIAL_CASES))
+def test_material_kernels_match_plain(dev, case, k):
+    """The gather bit for bit the plain version's; the adjoint within
+    1e-5 x sum |g| of each entry's lanes, and equal bits on a second
+    run."""
+    n, m, how = MATERIAL_CASES[case]
+    ids, table, g = _material_inputs(dev, n, m, how, k)
+    kernels.CALLS.clear()
+    got = material.gather(ids, table)
+    adj = [material.adjoint(ids, g, m) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert material.counters() == {"material_gather": 1,
+                                   "material_adjoint": 2,
+                                   "material_gather_plain": 0,
+                                   "material_adjoint_plain": 0}
+    assert torch.equal(got, material.gather_plain(ids, table))
+    want = material.adjoint_plain(ids, g, m)
+    assert bool(((adj[0] - want).abs()
+                 <= 1e-5 * _material_scale(ids, g, m)).all()), case
+    assert torch.equal(adj[0], adj[1])
+
+
+@pytest.mark.parametrize("k", [4, 21])
+def test_material_largest_table(dev, k):
+    """The largest table the kernels take, M x K = MAX_TABLE, against
+    the plain versions; one row more is refused, naming the limit."""
+    m = material.MAX_TABLE // k
+    ids, table, g = _material_inputs(dev, 20000, m, "uniform", k, seed=1)
+    assert torch.equal(material.gather(ids, table),
+                       material.gather_plain(ids, table))
+    want = material.adjoint_plain(ids, g, m)
+    assert bool(((material.adjoint(ids, g, m) - want).abs()
+                 <= 1e-5 * _material_scale(ids, g, m)).all())
+    big = torch.zeros((m + 1, k), device=dev)
+    with pytest.raises(ValueError, match="MAX_TABLE"):
+        material.gather(ids, big)
+    with pytest.raises(ValueError, match="MAX_TABLE"):
+        material.adjoint(ids, g, m + 1)
+
+
+def test_material_function_on_the_card(dev):
+    """MaterialLookup's forward and backward launch the kernels and give
+    the plain versions' values; a CPU table with CUDA ids is refused."""
+    ids, table, g = _material_inputs(dev, 70001, 5, "misses", 4, seed=2)
+    leaf = table.clone().requires_grad_(True)
+    kernels.CALLS.clear()
+    out = material.MaterialLookup.apply(ids, leaf)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert material.counters()["material_gather"] == 1
+    assert material.counters()["material_adjoint"] == 1
+    assert torch.equal(out.detach(), material.gather_plain(ids, table))
+    want = material.adjoint_plain(ids, g, 5)
+    assert bool(((leaf.grad - want).abs()
+                 <= 1e-5 * _material_scale(ids, g, 5)).all())
+    with pytest.raises(ValueError):
+        material.gather(ids, table.cpu())
