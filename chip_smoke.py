@@ -5,7 +5,7 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero):
   card           require CUDA; print the card's name and power limit
-  build          compile the CUDA kernels from fovtrace_torch/csrc (three
+  build          compile the CUDA kernels from fovtrace_torch/csrc (four
                  libraries, one nvcc each, in parallel); each kernel's
                  registers and spills from the log kept beside its
                  library, whichever process built it (none allowed in
@@ -33,7 +33,8 @@ non-zero):
   main earth     the CLI's render path on earth at 1920x1088 with the
                  bench configuration, 3 frames of the circle gaze; counts
                  kernel launches and plain/brute calls during that run
-                 (the material gather launched, its adjoint not)
+                 (the material gather and the envmap lookup launched,
+                 neither backward)
   main city      the same on city, through the streaming kernels
   profile        per-stage times (render.staged: a synchronise after each
                  stage, the reference's report names GB, Sampling,
@@ -82,7 +83,8 @@ non-zero):
                  busy share, the costliest backward functions, each tied
                  to the forward source line that made its autograd node,
                  and IndexBackward0 by forward source: none may come from
-                 material_lookup_v)
+                 material_lookup_v or render/shade.py); the envmap's
+                 d(fx, fy) launched, its adjoint not (no envmap trained)
   main earth fwd+bwd remat
                  the same with remat_shade: peak memory beside the run
                  without, one more closest-hit and occlusion launch per
@@ -101,6 +103,25 @@ non-zero):
                  kernel's time beside its plain version's, its bytes
                  bound, and the library calls (index_select, index_add_,
                  the aten gather's backward)
+  envmap         the envmap's lookup, d(fx, fy) and adjoint
+                 (csrc/envmap.cu) against their plain versions at the CPU
+                 tests' maps and directions (8x16, 64x128, 5x7; poles,
+                 seam, zero, NaN and inf directions), the seeded worst
+                 cases at the 1920x1088 front (every ray in one texel,
+                 uniform rays, 70% zero cotangent) and an 800x1600 map,
+                 then the lookups of one earth bench frame and the
+                 adjoints of one dense train step (its real cotangents):
+                 the lookup and d(fx, fy) bit for bit, the adjoint within
+                 1e-5 x sum |g w| of each entry's terms and equal on two
+                 runs; at the bench frame's and the train step's bounce 0
+                 each kernel's time beside its plain version's, its bytes
+                 bound and the library calls (grid_sample and its
+                 backward's d grid and d input, index_add_ of the four
+                 taps, the four gathers' IndexBackward0), each kernel and
+                 library call again queued behind a spin (device time
+                 alone), and the host's ms for one lookup's forward and
+                 backward through EnvmapLookup and through the expression
+                 it replaced
   bench          `python -m fovtrace_torch.bench`'s run (bench.py's twin),
                  in this process at 1920x1088, --iters 5 --warmup 1: earth
                  fwd+bwd --selfcheck, earth --forward-only and city
@@ -108,7 +129,8 @@ non-zero):
                  four keys and a finite positive value, no ray dropped,
                  the selfcheck above 0.999, and the timed steps launched
                  the route's cluster kernels (resident on earth, streaming
-                 on city) and no plain version or brute oracle
+                 on city), the envmap lookup (and, fwd+bwd, its d(fx, fy)),
+                 no envmap adjoint, and no plain version or brute oracle
   parity         256x256 frames with the kernels vs with the plain
                  versions (earth, city); a 64x64 earth frame vs
                  tests/golden/earth.npz
@@ -182,17 +204,19 @@ non-zero):
                  diffuse_max_depth 1, reconstruction none), one warm and
                  two timed each: ms/step, peak memory, Mrays/s, loss,
                  gradient norms (finite; nonzero, but gaze_uv's in the
-                 dense step), launches per step (the material kernels
-                 launched), and a torch.profiler summary of a step as in
-                 main earth fwd+bwd (the envmap taps' IndexBackward0,
-                 trained in this step, among its backward)
+                 dense step), launches per step (the material kernels and
+                 the envmap's, its adjoint once a bounce: the step trains
+                 the envmap), and a torch.profiler summary of a step as in
+                 main earth fwd+bwd (no IndexBackward0 from
+                 render/shade.py)
   optimize       `python -m fovtrace_torch.app.optimize --scene box` with
                  --ckpt: 60 steps at 128x128 (the loss falls; its exit
                  code printed), 80 on the same directory (resumes at 60),
                  40 then 60 on another, whose step-60 parameters equal the
                  first run's (rtol 1e-6), and tests/test_checkpoint.py's
                  32x32 8-step run (exit 0); each run launched the material
-                 kernels and no plain version
+                 and envmap kernels (the envmap adjoint too) and no plain
+                 version
 No plain version, brute oracle or bvh traversal runs on any card path
 (PATH_PLAIN). Neither probe runs on a render path: their kernels'
 launches on the main paths are 0.
@@ -237,6 +261,7 @@ NCHK = 4096            # seeded random rays per kernel check
 SRC = "fovtrace_torch/csrc/cluster_isect.cu"
 PROBE_SRC = "fovtrace_torch/csrc/probes.cu"
 MATERIAL_SRC = "fovtrace_torch/csrc/material.cu"
+ENVMAP_SRC = "fovtrace_torch/csrc/envmap.cu"
 REPLACES = {"closest_hit": "fovtrace/kernels/pallas_isect.py:518",
             "occlusion": "fovtrace/kernels/pallas_isect.py:806",
             "closest_hit_stream": "fovtrace/kernels/pallas_isect.py:577",
@@ -246,11 +271,18 @@ REPLACES = {"closest_hit": "fovtrace/kernels/pallas_isect.py:518",
             # the material table's lookup (no Pallas kernel: a select
             # chain / row gather) and its gradient with respect to the table
             "material_lookup": "fovtrace/kernels/intersect.py:401",
-            "material_lookup_adjoint": "fovtrace/kernels/intersect.py:401"}
+            "material_lookup_adjoint": "fovtrace/kernels/intersect.py:401",
+            # the envmap's bilinear lookup (no Pallas kernel: a quad-table
+            # gather) and its gradients, with respect to the texel
+            # coordinates and to the map
+            "envmap_lookup": "fovtrace/render/shade.py:41",
+            "envmap_dxy": "fovtrace/render/shade.py:41",
+            "envmap_adjoint": "fovtrace/render/shade.py:41"}
 KERNELS = tuple(REPLACES)
 SOURCES = {**dict.fromkeys(KERNELS[:4], SRC),
            **dict.fromkeys(KERNELS[4:6], PROBE_SRC),
-           **dict.fromkeys(KERNELS[6:], MATERIAL_SRC)}
+           **dict.fromkeys(KERNELS[6:8], MATERIAL_SRC),
+           **dict.fromkeys(KERNELS[8:], ENVMAP_SRC)}
 # the launch counters of the material kernels, by their JSON names
 MATERIAL_COUNTERS = {"material_lookup": "material_gather",
                      "material_lookup_adjoint": "material_adjoint"}
@@ -258,7 +290,9 @@ MATERIAL_COUNTERS = {"material_lookup": "material_gather",
 # one (their counters must stay 0)
 PATH_PLAIN = ("closest_hit_plain", "occlusion_plain", "intersect_brute",
               "occlusion_brute", "intersect_bvh", "occlusion_bvh",
-              "material_gather_plain", "material_adjoint_plain")
+              "material_gather_plain", "material_adjoint_plain",
+              "envmap_lookup_plain", "envmap_dxy_plain",
+              "envmap_adjoint_plain")
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32 = 67e12
@@ -386,6 +420,20 @@ def queued_ms(fn, iters: int = 20) -> float:
     spin = ev[0].elapsed_time(ev[1])
     assert host < spin, f"queueing took {host:.3f} ms, the spin {spin:.3f}"
     return ev[1].elapsed_time(ev[2]) / iters
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Host ms per call of fn over `iters` calls after a warm one, the
+    card idle before them (what the call costs the host, its kernels
+    queued, not waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -690,9 +738,11 @@ def bench_phase(scenes, card):
         other = "_stream" if name == "earth" else ""
         path_launches(f"bench {label}", res["per_step"],
                       (f"closest_hit{route}", f"occlusion{route}",
-                       "material_gather",
+                       "material_gather", "envmap_lookup",
                        *(() if "--forward-only" in flags else
-                         ("material_adjoint",))))
+                         ("material_adjoint", "envmap_dxy"))))
+        # the bench trains no envmap: its adjoint never runs
+        assert not res["per_step"].get("envmap_adjoint"), res["per_step"]
         for k in (f"closest_hit{other}", f"occlusion{other}"):
             assert k not in res["per_step"], (label, res["per_step"])
         ms = res["step_ms"]
@@ -1685,6 +1735,330 @@ def material_phase(earth, cam, cfg, card):
     return row, errs
 
 
+# ---- the envmap's bilinear lookup and its adjoint (csrc/envmap.cu) -------
+# (map [h, w] and its fill, rays, how the coordinates are drawn): the CPU
+# tests' maps with their directions (tests/test_torch_envmap.py), then
+# seeded worst cases at the 1920x1088 front: every ray in one texel,
+# uniform rays, 70% zero cotangent (a hit's), and a file scene's HDR map
+ENVMAP_CASES = {"8x16": ((8, 16), "exponential", NCHK, "directions"),
+                "64x128": ((64, 128), "checker", NCHK, "directions"),
+                "5x7": ((5, 7), "exponential", NCHK, "directions"),
+                "one-texel": ((64, 128), "checker", W * H, "one"),
+                "uniform": ((64, 128), "checker", W * H, "uniform"),
+                "misses": ((64, 128), "checker", W * H, "misses"),
+                "hdr": ((800, 1600), "exponential", W * H, "uniform")}
+# both poles, the seam (either sign of zero), a zero, a NaN and +-inf
+ENVMAP_SPECIAL = np.array(
+    [[0, 0, 0, -0.0, 0, np.nan, np.inf, -np.inf, np.inf, 0, 1, -1],
+     [1, -1, 0.3, 0.3, 0, 0, 0, 0, np.inf, -np.inf, 0, 0],
+     [0, 0, -1, -1, 0, 0, 0, 1, np.inf, 0, -0.0, -0.0]], np.float32)
+
+
+def envmap_inputs(case, seed=SEED):
+    """(fx, fy [n], map [h, w, 3], cotangent [3, n]) on the card from a
+    numpy seed; "directions" (unit vectors after the special ones) go
+    through the render path's texel coordinates."""
+    from fovtrace_torch.core.vec import Vec3
+    from fovtrace_torch.render import shade
+    from fovtrace_torch.scene import procedural
+
+    (h, w), fill, n, how = ENVMAP_CASES[case]
+    r = np.random.default_rng(seed)
+    env = (procedural.checker_envmap(h, w) if fill == "checker" else
+           r.exponential(size=(h, w, 3)).astype(np.float32))
+    g = r.normal(size=(3, n)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=DEVICE)
+    if how == "directions":
+        d = r.normal(size=(3, n))
+        d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+        d[:, :ENVMAP_SPECIAL.shape[1]] = ENVMAP_SPECIAL
+        fx, fy = shade.envmap_texel_coords(Vec3(*[t(d[k]) for k in range(3)]),
+                                           h, w)
+        return fx, fy, t(env), t(g)
+    if how == "one":
+        fx, fy = 70 + r.random(n, np.float32), 20 + r.random(n, np.float32)
+    else:
+        fx = r.random(n, np.float32) * (w - 1)
+        fy = r.random(n, np.float32) * (h - 1)
+        if how == "misses":
+            g[:, r.random(n) < 0.7] = 0.0
+    return t(fx), t(fy), t(env), t(g)
+
+
+def same_values(a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def envmap_adjoint_error(got, fx, fy, g, h, w, scale):
+    """A map adjoint `got` against the plain version's: (inf and NaN where
+    it has them, the finite entries' max abs err, their largest error
+    over 1e-5 x sum |g w| of the entry's terms, the nonfinite entries)."""
+    from fovtrace_torch.kernels import envmap
+
+    want = envmap.adjoint_plain(fx, fy, g, h, w, scale)
+    # sum |g w| per entry: the weights are >= 0 for coordinates on the map
+    tol = 1e-5 * envmap.adjoint_plain(fx, fy, g.abs(), h, w, scale)
+    fin = torch.isfinite(want)
+    diff = (got - want).abs()[fin]
+    over = diff / tol[fin].clamp_min(1e-30)
+    top = lambda t: float(t.max()) if t.numel() else 0.0
+    return (same_values(torch.where(fin, 0.0, got), torch.where(fin, 0.0, want)),
+            top(diff), top(over), int((~fin).sum()))
+
+
+def check_envmap(label, fx, fy, env, g, scale):
+    """The lookup and d(fx, fy) bit for bit their plain versions (NaN
+    where they have NaN); the adjoint within 1e-5 x sum |g w| of each
+    entry's terms (inf and NaN where the plain version has them), and
+    the same bits on a second run. Returns ({JSON name: max abs err},
+    the adjoint's largest error over its tolerance)."""
+    from fovtrace_torch.kernels import envmap
+
+    h, w = env.shape[:2]
+    out = envmap.lookup(fx, fy, env, scale)
+    dfx, dfy = envmap.dxy(fx, fy, env, g, scale)
+    adj = [envmap.adjoint(fx, fy, g, h, w, scale) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = envmap.lookup_plain(fx, fy, env, scale)
+    want_x, want_y = envmap.dxy_plain(fx, fy, env, g, scale)
+    nonfinite_same, a_err, over, nonfinite = envmap_adjoint_error(
+        adj[0], fx, fy, g, h, w, scale)
+    same = torch.equal(adj[0].view(torch.int32), adj[1].view(torch.int32))
+    err = lambda a, b: float(torch.nan_to_num((a - b).abs(), 0.0).max()) \
+        if a.numel() else 0.0
+    errs = {"envmap_lookup": err(out, want),
+            "envmap_dxy": max(err(dfx, want_x), err(dfy, want_y)),
+            "envmap_adjoint": a_err}
+    print(f"[envmap] {label}: N {fx.shape[0]}, map {h}x{w}: lookup bit for "
+          f"bit {same_values(out, want)}, d(fx, fy) bit for bit "
+          f"{same_values(dfx, want_x) and same_values(dfy, want_y)}; adjoint "
+          f"max abs err {a_err:.3e}, {over:.3e} of the 1e-5 x sum |g w| "
+          f"tolerance at worst, {nonfinite} nonfinite entries (as the plain "
+          f"version's {nonfinite_same}), two runs equal {same}")
+    assert same_values(out, want), label
+    assert same_values(dfx, want_x) and same_values(dfy, want_y), label
+    assert nonfinite_same and over <= 1.0, (label, over)
+    assert same, label
+    return errs, over
+
+
+def capture_envmap(earth, cam, cfg, mesh_dev):
+    """The lookups of one earth bench frame ([(fx, fy, map)] per bounce)
+    and the adjoints of one dense train step at W x H ([(fx, fy, g, h, w,
+    scale)] per bounce, the real cotangents), recorded at the wrappers."""
+    from fovtrace_torch.config import RenderConfig
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.dist import sharding as shd
+    from fovtrace_torch.dist import train
+    from fovtrace_torch.kernels import envmap
+    from fovtrace_torch.render import pipeline
+
+    looked, adjoints = [], []
+    real_lookup, real_adjoint = envmap.lookup, envmap.adjoint
+
+    def lookup(fx, fy, env, scale):
+        looked.append((fx.clone(), fy.clone(), env.detach().clone(), scale))
+        return real_lookup(fx, fy, env, scale)
+
+    def adjoint(fx, fy, g, h, w, scale):
+        adjoints.append((fx.clone(), fy.clone(), g.clone(), h, w, scale))
+        return real_adjoint(fx, fy, g, h, w, scale)
+
+    envmap.lookup, envmap.adjoint = lookup, adjoint
+    try:
+        with torch.no_grad():
+            pipeline.render_frame(earth, cam, (H // 2, W // 2),
+                                  pipeline.FrameState.initial(cam, cfg), cfg)
+        frame = list(looked)
+        tcfg = RenderConfig(width=W, height=H, max_depth=2,
+                            diffuse_max_depth=1, reconstruction="none")
+        tcam = Camera.create(eye=TRAIN_EYE, target=TRAIN_TARGET,
+                             device=mesh_dev)
+        true = train.init_params(earth, tcam)
+        with torch.no_grad():
+            target = train.render_rows_dense(earth, tcam, true, 0, H, tcfg, 0)
+        params = train.leaves(true.replace(eye=true.eye + 0.25))
+        train.make_loss_and_grad(earth, tcam, tcfg,
+                                 shd.make_mesh(None, mesh_dev))(params,
+                                                                target, 1)
+        torch.cuda.synchronize()
+    finally:
+        envmap.lookup, envmap.adjoint = real_lookup, real_adjoint
+    return frame, adjoints[::-1]     # the backward runs the last bounce first
+
+
+def envmap_bound(n, h, w, kind) -> float:
+    """ms to move what each kernel must, over the HBM rate: fx and fy read
+    (8 B a ray); the lookup writes [3, n] and reads the map, d(fx, fy)
+    reads the [3, n] cotangent and the map and writes two floats a ray,
+    the adjoint reads the cotangent and writes the map. Their operations
+    (a few dozen float operations a ray) take far less at the float32
+    peak."""
+    per_ray = {"lookup": 8 + 12, "dxy": 8 + 12 + 8, "adjoint": 8 + 12}[kind]
+    return (per_ray * n + 12 * h * w) / PEAK_BYTES * 1e3
+
+
+def envmap_phase(earth, cam, cfg, card):
+    """The envmap kernels against their plain versions at the CPU tests'
+    shapes, the seeded worst cases and the lookups of one earth bench
+    frame and one dense train step (its real cotangents); at the bench
+    frame's bounce 0 and the train step's bounce 0 each kernel's time
+    (CUDA events), its plain version's, its bound and the library calls
+    that compute the same (grid_sample for the lookup; its backward's d
+    grid for d(fx, fy); index_add_ of the four taps' terms, grid_sample's
+    d input and the four-gather expression's IndexBackward0 for the
+    adjoint); the host's ms for one lookup's forward and backward in the
+    fwd+bwd step, the Function against the expression it replaced. Returns ({JSON name: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)}, {JSON name: max abs err})."""
+    import torch.nn.functional as F
+
+    from fovtrace_torch.kernels import envmap
+
+    errs = dict.fromkeys(("envmap_lookup", "envmap_dxy", "envmap_adjoint"),
+                         0.0)
+
+    def keep(e):
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+
+    for case in ENVMAP_CASES:
+        keep(check_envmap(case, *envmap_inputs(case), cfg.envmap_scale)[0])
+    frame, adjoints = capture_envmap(earth, cam, cfg, cam.device)
+    assert len(frame) == cfg.max_depth and len(adjoints) == 2, \
+        (len(frame), len(adjoints))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for b, (fx, fy, env, scale) in enumerate(frame):
+        g = torch.randn((3, fx.shape[0]), generator=gen, device=DEVICE)
+        keep(check_envmap(f"bench frame bounce {b}", fx, fy, env, g,
+                          scale)[0])
+    for b, (fx, fy, g, h, w, scale) in enumerate(adjoints):
+        keep(check_envmap(f"dense train step bounce {b} (its cotangent)", fx,
+                          fy, earth.envmap.contiguous(), g, scale)[0])
+    rows = {}
+    shapes = {"bench frame bounce 0": (*frame[0][:3],
+                                       torch.randn((3, frame[0][0].shape[0]),
+                                                   generator=gen,
+                                                   device=DEVICE)),
+              "dense train step bounce 0": (adjoints[0][0], adjoints[0][1],
+                                            earth.envmap.contiguous(),
+                                            adjoints[0][2])}
+    scale = cfg.envmap_scale
+    for label, (fx, fy, env, g) in shapes.items():
+        n, (h, w) = fx.shape[0], env.shape[:2]
+        # the library yardsticks: grid_sample's bilinear border lookup at
+        # the same texel coordinates; the four taps' terms added by one
+        # index_add_; autograd's backward of the four row gathers
+        grid = torch.stack([fx / (w - 1) * 2 - 1, fy / (h - 1) * 2 - 1],
+                           -1).view(1, 1, n, 2)
+        img = env.permute(2, 0, 1)[None].contiguous()
+        taps = envmap.tap_terms(fx, fy, g, h, w, scale)
+        chan = torch.arange(3, device=DEVICE)
+        idx = torch.cat([(t[:, None] * 3 + chan).reshape(-1) for t, _ in taps])
+        vals = torch.cat([v.T.reshape(-1) for _, v in taps])
+        leaf = env.clone().requires_grad_(True)
+        x0, x1, y0, y1, _, _ = envmap._taps(fx, fy, h, w)
+
+        def gathers():
+            flat = leaf.reshape(-1, 3)
+            return torch.stack([flat[y0 * w + x0], flat[y0 * w + x1],
+                                flat[y1 * w + x0], flat[y1 * w + x1]])
+
+        picked = gathers()
+        gt = torch.ones_like(picked)
+        # grid_sample's backward: d input is the map's adjoint, d grid is
+        # d(fx, fy) times (w - 1) / 2 and (h - 1) / 2
+        gs = (g * scale).view(1, 3, 1, n)
+        gsb = lambda mask: torch.ops.aten.grid_sampler_2d_backward(
+            gs, img, grid, 0, 1, True, mask)
+        # (call, its CUDA-event iterations): the kernels and library calls
+        # 20, the plain versions and IndexBackward0 3
+        calls = {
+            "lookup": (lambda: envmap.lookup(fx, fy, env, scale), 20),
+            "lookup plain": (
+                lambda: envmap.lookup_plain(fx, fy, env, scale), 3),
+            "grid_sample": (lambda: F.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border",
+                align_corners=True), 20),
+            "dxy": (lambda: envmap.dxy(fx, fy, env, g, scale), 20),
+            "dxy plain": (
+                lambda: envmap.dxy_plain(fx, fy, env, g, scale), 3),
+            "grid_sampler_2d_backward d grid": (
+                lambda: gsb([False, True]), 20),
+            "adjoint": (
+                lambda: envmap.adjoint(fx, fy, g, h, w, scale), 20),
+            "adjoint plain": (
+                lambda: envmap.adjoint_plain(fx, fy, g, h, w, scale), 3),
+            "index_add_": (lambda: torch.zeros(
+                h * w * 3, device=DEVICE).index_add_(0, idx, vals), 20),
+            "grid_sampler_2d_backward d input": (
+                lambda: gsb([True, False]), 20),
+            "IndexBackward0": (lambda: torch.autograd.grad(
+                picked, leaf, gt, retain_graph=True), 3)}
+        times = {k: cuda_ms(fn, it) for k, (fn, it) in calls.items()}
+        # the kernels and library calls again, queued behind a spin: the
+        # card's time alone, without the host's per call
+        queued = {k: queued_ms(fn) for k, (fn, it) in calls.items()
+                  if it == 20}
+        bounds = {k: envmap_bound(n, h, w, k)
+                  for k in ("lookup", "dxy", "adjoint")}
+        live = int((g != 0).any(0).sum())
+        print(f"[envmap] {label}: N {n} ({live} with a nonzero cotangent), "
+              f"map {h}x{w}: " + ", ".join(f"{k} {ms:.4f}"
+                                          for k, ms in times.items())
+              + " ms; bounds (bytes) " + ", ".join(
+                  f"{k} {ms:.4f}" for k, ms in bounds.items())
+              + f" ms  [{card}]")
+        print(f"[envmap] {label}: queued behind a spin (device ms a call): "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in queued.items()))
+        # the library's d grid against d(fx, fy) where no edge clamps
+        dfx, dfy = envmap.dxy(fx, fy, env, g, scale)
+        dgrid = gsb([False, True])[1].view(n, 2)
+        inner = (fx > 0) & (fx < w - 1) & (fy > 0) & (fy < h - 1) & \
+            ((dfx != 0) | (dfy != 0))
+        # (a map that varies along one axis has d fx = 0 exactly: one scale
+        # for both)
+        d_lib = torch.stack([dgrid[:, 0] * (2 / (w - 1)),
+                             dgrid[:, 1] * (2 / (h - 1))])[:, inner]
+        d_own = torch.stack([dfx, dfy])[:, inner]
+        lib_err = float((d_lib - d_own).abs().max()
+                        / d_own.abs().max().clamp_min(1e-30)) \
+            if bool(inner.any()) else 0.0
+        print(f"[envmap] {label}: grid_sampler_2d_backward's d grid against "
+              f"d(fx, fy) on the {int(inner.sum())} lanes off the edges: "
+              f"max abs diff {lib_err:.3e} of the largest")
+        rows[label] = (times, bounds)
+    # the host's cost of one lookup's forward and backward as the fwd+bwd
+    # step runs it (d(fx, fy), no map gradient): the Function against the
+    # four-gather expression it replaced
+    fx, fy, env, _ = shapes["bench frame bounce 0"]
+    fxl, fyl = (t.clone().requires_grad_(True) for t in (fx, fy))
+    g = torch.randn((3, fx.shape[0]), generator=gen, device=DEVICE)
+    host = {"EnvmapLookup": lambda: torch.autograd.grad(
+                envmap.EnvmapLookup.apply(fxl, fyl, env, scale), (fxl, fyl),
+                g),
+            "four-gather expression": lambda: torch.autograd.grad(
+                envmap.lookup_plain(fxl, fyl, env, scale), (fxl, fyl), g)}
+    host = {k: host_ms(fn) for k, fn in host.items()}
+    more = cfg.max_depth * (host["EnvmapLookup"]
+                            - host["four-gather expression"])
+    print("[envmap] host ms per lookup forward + backward (d(fx, fy)) at the "
+          "bench frame's bounce 0: " + ", ".join(
+              f"{k} {ms:.4f}" for k, ms in host.items())
+          + f"; {cfg.max_depth} a fwd+bwd step: {more:+.4f} ms/step  "
+          f"[{card}]")
+    times, bounds = rows["dense train step bounce 0"]
+    row = {"envmap_lookup": (times["lookup"], times["lookup plain"],
+                             bounds["lookup"], "bytes", times["grid_sample"]),
+           "envmap_dxy": (times["dxy"], times["dxy plain"], bounds["dxy"],
+                          "bytes", times["grid_sampler_2d_backward d grid"]),
+           "envmap_adjoint": (times["adjoint"], times["adjoint plain"],
+                              bounds["adjoint"], "bytes",
+                              times["index_add_"])}
+    return row, errs
+
+
 def golden_grad_parity(earth, cam):
     """tests/golden/earth.npz's gradient fingerprint, from the golden's
     loss (the mean image of one 64x64 frame started from the
@@ -2170,10 +2544,13 @@ def dense_rays(scene, cam, cfg) -> int:
 def train_steps(earth, mesh, card, steps=2):
     """One warm and `steps` timed train steps, dense and foveated (hard),
     on earth at W x H in optimize's configuration, one rank."""
+    import importlib.util
+
     from fovtrace_torch.config import RenderConfig
     from fovtrace_torch.core.camera import Camera
     from fovtrace_torch.dist import train
 
+    ported = importlib.util.find_spec("fovtrace_torch.kernels.envmap")
     cfg = RenderConfig(width=W, height=H, max_depth=2, diffuse_max_depth=1,
                        reconstruction="none")
     cam = Camera.create(eye=TRAIN_EYE, target=TRAIN_TARGET, device=mesh.device)
@@ -2230,8 +2607,15 @@ def train_steps(earth, mesh, card, steps=2):
             assert counts.get(k, 0) == 0, (k, counts)
         assert counts["closest_hit"] > 0 and counts["occlusion"] > 0, counts
         per_step[label] = counts
-        fwd_bwd_profile(label, lambda: loss_and_grad(params, target, 3),
-                        steady, card)
+        bwd = fwd_bwd_profile(label, lambda: loss_and_grad(params, target, 3),
+                              steady, card)
+        if ported:   # a parent checkout (--attribution ROOT) may predate it
+            # the envmap is trained: its taps' adjoint is the kernel's, a
+            # launch per bounce, and no IndexBackward0 comes from the shade
+            assert counts["envmap_adjoint"] == counts["envmap_lookup"] == \
+                cfg.max_depth, counts
+            assert not [key for key in bwd if key[0] == "IndexBackward0"
+                        and "render/shade.py" in key[1]], bwd
     return per_step
 
 
@@ -2263,12 +2647,14 @@ def optimize_runs(tmp, card):
                   or "resumed" in line or "launches" in line))
         assert p.returncode in (0, 1) and "done in" in p.stderr, \
             p.stderr[-3000:]
-        # the run's kernel launches: the material kernels on its steps,
-        # and no plain version
+        # the run's kernel launches: the material and envmap kernels on its
+        # steps, and no plain version
         launched, = [ast.literal_eval(line.split(": ", 1)[1]) for line in lines
                      if "kernel launches and plain calls" in line]
         assert launched.get("material_gather", 0) > 0 and \
             launched.get("material_adjoint", 0) > 0, launched
+        assert launched.get("envmap_lookup", 0) > 0 and \
+            launched.get("envmap_adjoint", 0) > 0, launched
         assert not set(PATH_PLAIN) & set(launched), launched
         return p.returncode, p.stderr
 
@@ -2638,7 +3024,7 @@ def main() -> int:
     from fovtrace_torch.config import RenderConfig, pin_fp32
     from fovtrace_torch.core.camera import Camera
     from fovtrace_torch.kernels import cluster_isect as ci
-    from fovtrace_torch.kernels import material
+    from fovtrace_torch.kernels import envmap, material
     from fovtrace_torch.render import pipeline
     from fovtrace_torch.scene import procedural
     from fovtrace_torch.scripts import load_probe_library
@@ -2657,10 +3043,11 @@ def main() -> int:
     ph.start("build")
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = [f.result()._name for f in [
             pool.submit(ci.load_cuda_library), pool.submit(load_probe_library),
-            pool.submit(material.load_cuda_library)]]
+            pool.submit(material.load_cuda_library),
+            pool.submit(envmap.load_cuda_library)]]
     print(f"[build] CUDA kernels built in {time.perf_counter() - t0:.2f} s")
     logs = [_build.build_log(lib) for lib in libs]
     for lib, log in zip(libs, logs):
@@ -2720,9 +3107,11 @@ def main() -> int:
     assert counts_e["closest_hit"] > 0 and counts_e["occlusion"] > 0
     assert counts_e["closest_hit_stream"] == 0 and \
         counts_e["occlusion_stream"] == 0
-    # a forward frame looks the table up and builds no backward
+    # a forward frame looks the table and the envmap up, no backward
     assert counts_e["material_gather"] > 0 and \
         counts_e["material_adjoint"] == 0, counts_e
+    assert counts_e["envmap_lookup"] > 0 and \
+        counts_e["envmap_dxy"] == counts_e["envmap_adjoint"] == 0, counts_e
     ph.start("main city")
     counts_c, cfg_c, steady_c, _ = main_path("main city", "city", city, cam,
                                              card)
@@ -2730,7 +3119,9 @@ def main() -> int:
         counts_c["occlusion_stream"] > 0
     assert counts_c["closest_hit"] == 0 and counts_c["occlusion"] == 0
     assert counts_c["material_gather"] > 0, counts_c
-    launches = {k: counts_e[k] for k in ("closest_hit", "occlusion")}
+    assert counts_c["envmap_lookup"] > 0, counts_c
+    launches = {k: counts_e[k] for k in ("closest_hit", "occlusion",
+                                         "envmap_lookup")}
     launches.update({k: counts_c[k] for k in ("closest_hit_stream",
                                               "occlusion_stream")})
     launches.update(micro_inner=0, smem_dma=0)   # no render path runs them
@@ -2742,13 +3133,20 @@ def main() -> int:
     assert per_e["closest_hit"] > 0 and per_e["occlusion"] > 0, per_e
     assert per_e["material_gather"] > 0 and per_e["material_adjoint"] > 0, \
         per_e
-    # the JSON line's material launches: the 3 timed fwd+bwd steps'
+    # the eye and target reach the directions: d(fx, fy), and no adjoint
+    # (the step does not train the envmap)
+    assert per_e["envmap_dxy"] == per_e["envmap_lookup"] > 0 and \
+        per_e["envmap_adjoint"] == 0, per_e
+    # the JSON line's material and d(fx, fy) launches: the 3 timed fwd+bwd
+    # steps'
     launches.update({name: round(3 * per_e[c])
                      for name, c in MATERIAL_COUNTERS.items()})
+    launches["envmap_dxy"] = round(3 * per_e["envmap_dxy"])
     bwd_e = fwd_bwd_profile("main earth fwd+bwd", lambda: pipeline.grad_step(
         earth, cam, (H // 2, W // 2), st_e, cfg_e), step_e, card)
     assert not [key for key in bwd_e if key[0] == "IndexBackward0"
-                and "material_lookup_v" in key[1]], bwd_e
+                and ("material_lookup_v" in key[1]
+                     or "render/shade.py" in key[1])], bwd_e
     ph.start("main earth fwd+bwd remat")
     remat = cfg_e.replace(remat_shade=True)
     g_r, step_r, _, per_r, peak_r = fwd_bwd("main earth fwd+bwd remat",
@@ -2759,6 +3157,8 @@ def main() -> int:
     # and every bounce's lookups (surface and shade) once more
     assert per_r["material_gather"] == \
         per_e["material_gather"] + 2 * cfg_e.max_depth, (per_r, per_e)
+    assert per_r["envmap_lookup"] == \
+        per_e["envmap_lookup"] + cfg_e.max_depth, (per_r, per_e)
     worst = max(float(((g_r[k] - g_e[k]).abs()
                        / g_e[k].abs().clamp_min(1e-30)).max()) for k in g_e)
     print(f"[main earth fwd+bwd remat] peak memory {peak_r:.2f} GiB with "
@@ -2774,12 +3174,17 @@ def main() -> int:
     assert per_c["closest_hit_stream"] > 0 and per_c["occlusion_stream"] > 0
     assert per_c["closest_hit"] == 0 and per_c["occlusion"] == 0
     assert per_c["material_gather"] > 0 and per_c["material_adjoint"] > 0
+    assert per_c["envmap_dxy"] > 0 and per_c["envmap_adjoint"] == 0, per_c
     fwd_bwd_profile("main city fwd+bwd", lambda: pipeline.grad_step(
         city, cam, (H // 2, W // 2), st_c, cfg_c), step_c, card)
 
     # ---- the material kernels against their plain versions ----------------
     ph.start("material")
     material_row, material_errs = material_phase(earth, cam, cfg_e, card)
+
+    # ---- the envmap kernels against their plain versions ------------------
+    ph.start("envmap")
+    envmap_row, envmap_errs = envmap_phase(earth, cam, cfg_e, card)
 
     # ---- fovtrace_torch.bench, bench.py's twin ------------------------------
     ph.start("bench")
@@ -2829,9 +3234,10 @@ def main() -> int:
         micro["full"][4]
     row["smem_dma"], errs["smem_dma"] = dma_res[:4], dma_res[5]
     library = {"smem_dma": dma_res[4]}
-    for name, r in material_row.items():
+    for name, r in {**material_row, **envmap_row}.items():
         row[name], library[name] = r[:4], r[4]
     errs.update(material_errs)
+    errs.update(envmap_errs)
 
     # ---- frame parity ---------------------------------------------------------
     ph.start("parity")
@@ -2927,6 +3333,10 @@ def main() -> int:
         for counts in per_t.values():
             assert counts["material_gather"] > 0 and \
                 counts["material_adjoint"] > 0, counts
+        # the JSON line's envmap adjoint launches: the 2 timed steps of each
+        # train step's (the only paths that train the envmap)
+        launches["envmap_adjoint"] = round(sum(
+            2 * counts["envmap_adjoint"] for counts in per_t.values()))
         launch.shutdown()
         ph.start("optimize")
         optimize_runs(tmp, card)

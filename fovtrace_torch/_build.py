@@ -14,6 +14,7 @@ different libraries run their compilers at the same time.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import platform
@@ -76,6 +77,20 @@ def build_library(name: str, sources: Sequence[Path],
         os.replace(tmp_log, log)
         os.replace(tmp, out)
         return out
+
+
+def load_library(name: str, sources: Sequence[Path],
+                 command: Callable[[List[str], str], List[str]],
+                 signatures: Dict[str, tuple],
+                 headers: Sequence[Path] = ()) -> ctypes.CDLL:
+    """The library that `build_library` builds, loaded by ctypes, each
+    C entry point given its (argtypes, restype) from `signatures`."""
+    lib = ctypes.CDLL(str(build_library(name, sources, command, headers)))
+    for fn_name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
 
 
 def build_log(library: Path) -> str:

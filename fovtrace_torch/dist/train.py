@@ -38,7 +38,8 @@ class TrainParams:
     kd: torch.Tensor              # [M, 3] material albedos
     envmap: torch.Tensor          # [He, We, 3] lat-long radiance; its
     #                               gradient flows through the bilinear
-    #                               miss lookup (shade.envmap_lookup_v)
+    #                               miss lookup (shade.envmap_lookup_v:
+    #                               envmap.EnvmapLookup's adjoint)
 
     def tensors(self) -> Tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f.name) for f in dataclasses.fields(self))

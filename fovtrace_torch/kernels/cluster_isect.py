@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import shutil
 from pathlib import Path
 
@@ -47,7 +48,7 @@ from fovtrace_torch import _build, kernels
 from fovtrace_torch.config import pin_fp32
 from fovtrace_torch.core import vec
 from fovtrace_torch.core.vec import Vec3
-from fovtrace_torch.kernels import material
+from fovtrace_torch.kernels import envmap, material
 from fovtrace_torch.kernels.intersect import BIG_T, DET_EPS, Hit
 
 CLUSTER = 128        # minimum triangles per cluster
@@ -66,7 +67,6 @@ _PLAIN_CHUNK_BYTES = 64 << 20
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "cluster_isect.cu"
 TMA_HEADER = _CSRC.parent / "tma.cuh"
-_cuda_lib = None
 
 # the streaming kernels split a ray block with more live schedule
 # entries than this over eight CTAs of 32 rays (HEAVY in the CUDA source)
@@ -446,19 +446,11 @@ def c_signatures() -> dict:
     return out
 
 
+@functools.cache
 def load_cuda_library() -> ctypes.CDLL:
     """The compiled kernel library (built at first use)."""
-    global _cuda_lib
-    if _cuda_lib is None:
-        path = _build.build_library("fovtrace_cluster_isect", [_CSRC],
-                                    _nvcc_command, [TMA_HEADER])
-        lib = ctypes.CDLL(str(path))
-        for name, (argtypes, restype) in c_signatures().items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _cuda_lib = lib
-    return _cuda_lib
+    return _build.load_library("fovtrace_cluster_isect", [_CSRC],
+                               _nvcc_command, c_signatures(), [TMA_HEADER])
 
 
 def _check(raysT, coef, schedmask, counts, params, aux=None, visited=None,
@@ -703,7 +695,7 @@ def occlusion(raysT, coef, aux, schedmask, counts, params, visited=None, *,
 COUNTED = ("closest_hit", "occlusion", "closest_hit_stream",
            "occlusion_stream", "closest_hit_plain", "occlusion_plain",
            "intersect_brute", "occlusion_brute", "intersect_bvh",
-           "occlusion_bvh", *material.COUNTED)
+           "occlusion_bvh", *material.COUNTED, *envmap.COUNTED)
 
 
 def reset_counters() -> None:
@@ -712,8 +704,8 @@ def reset_counters() -> None:
 
 
 def counters() -> dict:
-    """Kernel launches (the material kernels' too) and plain-version /
-    brute-oracle / bvh-traversal calls so far."""
+    """Kernel launches (the material and envmap kernels' too) and
+    plain-version / brute-oracle / bvh-traversal calls so far."""
     return {k: kernels.CALLS[k] for k in COUNTED}
 
 

@@ -16,6 +16,7 @@ wrappers count their launches and the plain versions their calls
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -24,7 +25,6 @@ from torch.autograd.function import once_differentiable
 from fovtrace_torch import _build, kernels
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "material.cu"
-_lib = None
 
 # copies of csrc/material.cu's constants (tests/test_torch_material.py
 # holds them to the source): the table's floats that fit the gather's
@@ -45,21 +45,13 @@ def c_signatures() -> dict:
             "fov_material_adjoint": ([p] * 4 + [i] * 3 + [p], i)}
 
 
+@functools.cache
 def load_cuda_library() -> ctypes.CDLL:
     """The compiled material library (built at first use)."""
-    global _lib
-    if _lib is None:
-        from fovtrace_torch.kernels import cluster_isect as ci
+    from fovtrace_torch.kernels import cluster_isect as ci
 
-        path = _build.build_library("fovtrace_material", [_CSRC],
-                                    ci._nvcc_command)
-        lib = ctypes.CDLL(str(path))
-        for name, (argtypes, restype) in c_signatures().items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
-    return _lib
+    return _build.load_library("fovtrace_material", [_CSRC],
+                               ci._nvcc_command, c_signatures())
 
 
 def _check(ids: torch.Tensor, table_or_g: torch.Tensor, m: int, k: int,
@@ -113,17 +105,8 @@ def adjoint_plain(ids: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
 
 # ------------------------------------------------------------- wrappers
 def _launch(name: str, tensors, ints) -> None:
-    """Call the library's fov_`name` with the tensors' data pointers, the
-    ints and the current stream; raise on a CUDA error, count the launch.
-    The tensors stay referenced by the caller until it returns them or
-    the stream is done with them (outputs, and scratch the caching
-    allocator only hands out again on the same stream)."""
-    err = getattr(load_cuda_library(), f"fov_{name}")(
-        *[t.data_ptr() for t in tensors], *ints,
-        torch.cuda.current_stream(tensors[0].device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    kernels.CALLS[name] += 1
+    """`kernels.launch` of the library's fov_`name` with n, m, k."""
+    kernels.launch(load_cuda_library(), name, tensors, *ints)
 
 
 def gather(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -20,35 +20,30 @@ from torch.utils.checkpoint import checkpoint
 
 from fovtrace_torch.core import mathx, rng, vec
 from fovtrace_torch.core.vec import Vec3
+from fovtrace_torch.kernels import envmap as envmap_k
 from fovtrace_torch.kernels import intersect as isect
 
 
-def envmap_lookup_v(envmap: torch.Tensor, dirs: Vec3, scale: float = 2.0
-                    ) -> Vec3:
-    """Bilinear, edge-clamped lat-long environment lookup."""
+def envmap_texel_coords(dirs: Vec3, h: int, w: int):
+    """(fx, fy): the continuous texel coordinates of each direction on an
+    [h, w] lat-long map (u = 0 at theta = -pi, v = 1 at the top)."""
     theta = torch.atan2(dirs.x, dirs.z)
     phi = math.pi * 0.5 - torch.acos(torch.clamp(dirs.y, -1.0, 1.0))
     u = (theta + math.pi) * (0.5 / math.pi)
     v = 0.5 * (1.0 + torch.sin(phi))
-    h, w = envmap.shape[0], envmap.shape[1]
-    fx = u * (w - 1)
-    fy = (1.0 - v) * (h - 1)
-    x0 = torch.clamp(torch.floor(fx).to(torch.int64), 0, w - 1)
-    y0 = torch.clamp(torch.floor(fy).to(torch.int64), 0, h - 1)
-    wx = fx - x0
-    wy = fy - y0
-    x1 = torch.clamp_max(x0 + 1, w - 1)
-    y1 = torch.clamp_max(y0 + 1, h - 1)
-    flat = envmap.reshape(-1, 3)
-    c00, c01 = flat[y0 * w + x0], flat[y0 * w + x1]
-    c10, c11 = flat[y1 * w + x0], flat[y1 * w + x1]
+    return u * (w - 1), (1.0 - v) * (h - 1)
 
-    def bilerp(k):
-        top = mathx.fma(c00[:, k], 1 - wx, c01[:, k] * wx)
-        bottom = mathx.fma(c10[:, k], 1 - wx, c11[:, k] * wx)
-        return mathx.fma(top, 1 - wy, bottom * wy)
 
-    return Vec3(bilerp(0), bilerp(1), bilerp(2)) * scale
+def envmap_lookup_v(envmap: torch.Tensor, dirs: Vec3, scale: float = 2.0
+                    ) -> Vec3:
+    """Bilinear, edge-clamped lat-long environment lookup: the texel
+    coordinates here, the taps and the blend in `envmap.EnvmapLookup`
+    (kernels on the card, its adjoint a deterministic per-texel sum)."""
+    fx, fy = envmap_texel_coords(dirs, envmap.shape[0], envmap.shape[1])
+    rgb = envmap_k.EnvmapLookup.apply(fx.reshape(-1).contiguous(),
+                                      fy.reshape(-1).contiguous(),
+                                      envmap.contiguous(), scale)
+    return Vec3(*(c.view(fx.shape) for c in rgb))
 
 
 def nee_direct_v(scene, point: Vec3, normal: Vec3, kd: Vec3, seeds, config,

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import subprocess
 from pathlib import Path
 
@@ -37,7 +38,6 @@ EYE, TARGET = (3.0, 2.5, 4.0), (0.0, 0.8, 0.0)
 _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "probes.cu"
 MICRO_VARIANTS = ("loop", "slab", "mm_lane", "mm_lead", "mm_bf16", "full")
 GRID_ORDERS = ("longest", "ascending")
-_lib = None
 _grid = None
 
 
@@ -57,19 +57,11 @@ def probe_signatures() -> dict:
     return out
 
 
+@functools.cache
 def load_probe_library() -> ctypes.CDLL:
     """The compiled probe library (built at first use)."""
-    global _lib
-    if _lib is None:
-        path = _build.build_library("fovtrace_probes", [_CSRC],
-                                    ci._nvcc_command, [ci.TMA_HEADER])
-        lib = ctypes.CDLL(str(path))
-        for name, (argtypes, restype) in probe_signatures().items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
-    return _lib
+    return _build.load_library("fovtrace_probes", [_CSRC], ci._nvcc_command,
+                               probe_signatures(), [ci.TMA_HEADER])
 
 
 def ticket_order(counts: torch.Tensor) -> torch.Tensor:

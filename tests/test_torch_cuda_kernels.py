@@ -8,8 +8,11 @@ same ties and warp exits, and with the ray blocks' split forced; then
 the probe kernels (csrc/probes.cu) on their default and forced grids,
 and the row-copy probe on each of its table paths; then the material
 table's gather and adjoint (csrc/material.cu) at the CPU tests' shapes,
-at the 1920x1088 front and at the largest table they take. Seeded rays.
-Marked `cuda`; skipped without a GPU.
+at the 1920x1088 front and at the largest table they take; then the
+envmap's lookup, d(fx, fy) and adjoint (csrc/envmap.cu) at the CPU
+tests' maps and directions, at seeded 1920x1088 worst cases and on an
+800x1600 map (chip_smoke.py's [envmap] cases, inputs and checks), with
+nonfinite cotangents, and through EnvmapLookup. Seeded rays. Marked `cuda`; skipped without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from fovtrace_torch import Camera, kernels
 from fovtrace_torch.core.vec import Vec3
 from fovtrace_torch.kernels import cluster_isect as ci
@@ -662,3 +666,73 @@ def test_material_function_on_the_card(dev):
                  <= 1e-5 * _material_scale(ids, g, 5)).all())
     with pytest.raises(ValueError):
         material.gather(ids, table.cpu())
+
+
+# ------------------------------------------------------- the envmap lookup
+# chip_smoke.py's [envmap] harness: its case table (the CPU tests' maps
+# with their directions, seeded 1920x1088 worst cases, an 800x1600 map),
+# its seeded inputs and its checks
+
+
+@pytest.mark.parametrize("case", list(chip_smoke.ENVMAP_CASES))
+def test_envmap_kernels_match_plain(dev, case):
+    """The lookup and d(fx, fy) equal the plain versions bit for bit; the
+    map's adjoint is within 1e-5 x sum |g w| of each entry's terms, with
+    the same bits on a second run."""
+    from fovtrace_torch.kernels import envmap
+
+    kernels.CALLS.clear()
+    chip_smoke.check_envmap(case, *chip_smoke.envmap_inputs(case), 2.0)
+    counts = envmap.counters()
+    assert (counts["envmap_lookup"], counts["envmap_dxy"],
+            counts["envmap_adjoint"]) == (1, 1, 2), counts
+
+
+def test_envmap_nonfinite_cotangent(dev):
+    """inf and NaN cotangents give the plain version's inf, -inf and NaN
+    entries."""
+    from fovtrace_torch.kernels import envmap
+
+    fx, fy, env, g = chip_smoke.envmap_inputs("uniform", seed=3)
+    n = fx.shape[0]
+    fx[: n // 2] = 10.5      # a shared texel, then each sign and both
+    fy[: n // 2] = 5.5
+    g[0, 0], g[1, 1], g[1, 2], g[2, 3] = np.inf, np.inf, -np.inf, np.nan
+    g[0, n - 1] = -np.inf
+    h, w = env.shape[:2]
+    got = envmap.adjoint(fx, fy, g, h, w, 2.0)
+    nonfinite_same, _, over, nonfinite = chip_smoke.envmap_adjoint_error(
+        got, fx, fy, g, h, w, 2.0)
+    assert nonfinite > 0
+    assert nonfinite_same and over <= 1.0, over
+
+
+def test_envmap_function_on_the_card(dev):
+    """EnvmapLookup's forward and backward launch the kernels and give
+    the plain versions' values; without the map's gradient no adjoint
+    runs; a CPU map with CUDA coordinates is refused."""
+    from fovtrace_torch.kernels import envmap
+
+    same = chip_smoke.same_values
+    fx, fy, env, g = chip_smoke.envmap_inputs("misses", seed=2)
+    h, w = env.shape[:2]
+    leaves = [t.clone().requires_grad_(True) for t in (fx, fy, env)]
+    kernels.CALLS.clear()
+    out = envmap.EnvmapLookup.apply(*leaves, 2.0)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in envmap.counters().items() if v} == {
+        "envmap_lookup": 1, "envmap_dxy": 1, "envmap_adjoint": 1}
+    assert same(out.detach(), envmap.lookup_plain(fx, fy, env, 2.0))
+    want_x, want_y = envmap.dxy_plain(fx, fy, env, g, 2.0)
+    assert same(leaves[0].grad, want_x) and same(leaves[1].grad, want_y)
+    nonfinite_same, _, over, _ = chip_smoke.envmap_adjoint_error(
+        leaves[2].grad, fx, fy, g, h, w, 2.0)
+    assert nonfinite_same and over <= 1.0, over
+    kernels.CALLS.clear()
+    xy = [t.clone().requires_grad_(True) for t in (fx, fy)]
+    envmap.EnvmapLookup.apply(*xy, env, 2.0).backward(g)
+    assert envmap.counters()["envmap_adjoint"] == 0
+    assert envmap.counters()["envmap_dxy"] == 1
+    with pytest.raises(ValueError):
+        envmap.lookup(fx, fy, env.cpu(), 2.0)
