@@ -102,18 +102,30 @@ non-zero):
                  and equal on two runs; at the frame's shapes each
                  kernel's time beside its plain version's, its bytes
                  bound, and the library calls (index_select, index_add_,
-                 the aten gather's backward)
+                 the aten gather's backward), the kernels and library
+                 calls again queued behind a spin (device time alone,
+                 and each kernel's share of its bound), and the host's
+                 ms a call of each kernel
   envmap         the envmap's lookup, d(fx, fy) and adjoint
                  (csrc/envmap.cu) against their plain versions at the CPU
                  tests' maps and directions (8x16, 64x128, 5x7; poles,
                  seam, zero, NaN and inf directions), the seeded worst
                  cases at the 1920x1088 front (every ray in one texel,
                  uniform rays, 70% zero cotangent) and an 800x1600 map,
-                 then the lookups of one earth bench frame and the
-                 adjoints of one dense train step (its real cotangents):
-                 the lookup and d(fx, fy) bit for bit, the adjoint within
-                 1e-5 x sum |g w| of each entry's terms and equal on two
-                 runs; at the bench frame's and the train step's bounce 0
+                 and the two maps either side of the adjoint's route
+                 boundary (64x134: the largest 64-row map whose sums a
+                 block's shared memory holds; 64x135), each case's adjoint
+                 queued behind a spin; the adjoint's route on the card
+                 for each map (the C entry point's own choice) against
+                 kernels/envmap.py's adjoint_route at the card's opt-in
+                 shared memory; both routes forced on the maps that fit
+                 give the same bits, and the shared route forced on
+                 64x135 is refused (raises, nothing else runs); then the
+                 lookups of one earth bench frame and the adjoints of one
+                 dense train step (its real cotangents): the lookup and
+                 d(fx, fy) bit for bit, the adjoint within 1e-5 x sum
+                 |g w| of each entry's terms and equal on two runs; at
+                 the bench frame's and the train step's bounce 0
                  each kernel's time beside its plain version's, its bytes
                  bound and the library calls (grid_sample and its
                  backward's d grid and d input, index_add_ of the four
@@ -225,6 +237,14 @@ launches on the main paths are 0.
 
 times only the two probes' kernels, of this checkout or of the one at
 ROOT (a parent's `git archive`), by their device time and their call.
+
+    python3 chip_smoke.py --adjoint-times [ROOT]
+
+times only the envmap adjoint (its seeded cases, the bench frame's
+bounce 0, both bounces of a dense train step) and the material adjoint
+(an earth bench frame's three fronts), of this checkout or of the one at
+ROOT, queued behind a spin, with a digest of each output's bytes: equal
+digests mean the same bits.
 
     python3 chip_smoke.py --attribution [ROOT]
 
@@ -1677,7 +1697,9 @@ def material_phase(earth, cam, cfg, card):
     shapes each kernel's time (CUDA events, 20 calls), its plain
     version's, its bound, and the library calls that compute the same:
     index_select + .T.contiguous() for the gather, index_add_ and the
-    aten gather's backward (IndexBackward0) for the adjoint. Returns
+    aten gather's backward (IndexBackward0) for the adjoint; the kernels
+    and library calls again queued behind a spin (`queued_ms`: the
+    card's time alone) and the host's ms a kernel call. Returns
     ({JSON name: (ms, plain_ms, bound_ms, bound_by, library_ms)}, {JSON
     name: max abs err})."""
     from fovtrace_torch.kernels import material
@@ -1708,23 +1730,36 @@ def material_phase(earth, cam, cfg, card):
         lids = ids.long()
         leaf = table.clone().requires_grad_(True)
         gT = g.T
-        times = {
-            "gather": cuda_ms(lambda: material.gather(ids, table), iters=20),
-            "gather plain": cuda_ms(lambda: material.gather_plain(ids, table),
-                                    iters=3),
-            "index_select": cuda_ms(lambda: torch.index_select(
-                table, 0, lids).T.contiguous(), iters=20),
-            "adjoint": cuda_ms(lambda: material.adjoint(ids, g, m), iters=20),
-            "adjoint plain": cuda_ms(
-                lambda: material.adjoint_plain(ids, g, m), iters=3),
-            "index_add_": cuda_ms(lambda: torch.zeros(
-                (m, k), device=DEVICE).index_add_(0, lids, gT), iters=20),
-            "IndexBackward0": cuda_ms(lambda: torch.autograd.grad(
-                leaf[lids], leaf, gT), iters=3)}
+        # (call, its CUDA-event iterations): the kernels and library calls
+        # 20, the plain versions and IndexBackward0 3
+        calls = {
+            "gather": (lambda: material.gather(ids, table), 20),
+            "gather plain": (lambda: material.gather_plain(ids, table), 3),
+            "index_select": (lambda: torch.index_select(
+                table, 0, lids).T.contiguous(), 20),
+            "adjoint": (lambda: material.adjoint(ids, g, m), 20),
+            "adjoint plain": (lambda: material.adjoint_plain(ids, g, m), 3),
+            "index_add_": (lambda: torch.zeros(
+                (m, k), device=DEVICE).index_add_(0, lids, gT), 20),
+            "IndexBackward0": (lambda: torch.autograd.grad(
+                leaf[lids], leaf, gT), 3)}
+        times = {k_: cuda_ms(fn, it) for k_, (fn, it) in calls.items()}
+        # the kernels and library calls again, queued behind a spin (the
+        # card's time alone), and the host's ms a call of each kernel
+        queued = {k_: queued_ms(fn) for k_, (fn, it) in calls.items()
+                  if it == 20}
+        host = {k_: host_ms(calls[k_][0]) for k_ in ("gather", "adjoint")}
         bound_ms = material_bound(n, m, k)
         print(f"[material] {label} N {n}, M {m}, K {k}: " + ", ".join(
             f"{name} {ms:.4f}" for name, ms in times.items())
             + f" ms; bound {bound_ms:.4f} ms (bytes) each way  [{card}]")
+        print(f"[material] {label}: queued behind a spin (device ms a "
+              "call): " + ", ".join(
+                  f"{k_} {ms:.4f}" + (f" ({bound_ms / ms:.0%} of the bound)"
+                                      if k_ in ("gather", "adjoint") else "")
+                  for k_, ms in queued.items())
+              + "; host ms a call: " + ", ".join(
+                  f"{k_} {ms:.4f}" for k_, ms in host.items()))
         rows[label] = (times, bound_ms)
     times, bound_ms = rows["G-buffer"]
     row = {"material_lookup": (times["gather"], times["gather plain"],
@@ -1746,7 +1781,16 @@ ENVMAP_CASES = {"8x16": ((8, 16), "exponential", NCHK, "directions"),
                 "one-texel": ((64, 128), "checker", W * H, "one"),
                 "uniform": ((64, 128), "checker", W * H, "uniform"),
                 "misses": ((64, 128), "checker", W * H, "misses"),
-                "hdr": ((800, 1600), "exponential", W * H, "uniform")}
+                "hdr": ((800, 1600), "exponential", W * H, "uniform"),
+                # the adjoint's route boundary on the H100 (232,448 bytes of
+                # opt-in shared memory a block): the largest 64-row map
+                # whose sums a block holds, and the next size up
+                "edge-shared": ((64, 134), "exponential", W * H, "uniform"),
+                "edge-global": ((64, 135), "exponential", W * H, "uniform")}
+# the adjoint's route on the H100 for each map it is checked on
+ENVMAP_ROUTES = {(8, 16): "shared", (5, 7): "shared", (64, 128): "shared",
+                 (64, 134): "shared", (64, 135): "global",
+                 (800, 1600): "global"}
 # both poles, the seam (either sign of zero), a zero, a NaN and +-inf
 ENVMAP_SPECIAL = np.array(
     [[0, 0, 0, -0.0, 0, np.nan, np.inf, -np.inf, np.inf, 0, 1, -1],
@@ -1844,6 +1888,74 @@ def check_envmap(label, fx, fy, env, g, scale):
     return errs, over
 
 
+def card_optin() -> int:
+    """The card's opt-in shared memory a block, in bytes."""
+    return torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+
+
+def check_routes():
+    """The adjoint's route on the card (the C entry point's own choice) is
+    the wrapper's `adjoint_route` at the card's opt-in limit, and on the
+    H100 the one ENVMAP_ROUTES names, for each map it is checked on."""
+    from fovtrace_torch.kernels import envmap
+
+    optin = card_optin()
+    for (h, w), want in ENVMAP_ROUTES.items():
+        got = envmap.route_on_card(h, w)
+        print(f"[envmap] the adjoint's route for a {h}x{w} map: {got} "
+              f"({envmap.shared_bytes(h, w):,} bytes of shared memory "
+              f"against {optin:,})")
+        assert got == envmap.adjoint_route(h, w, optin), (h, w, got)
+        if optin == 232448:
+            assert got == want, (h, w, got)
+
+
+# the cases on which both adjoint routes are held to the same bits
+ROUTE_CASES = ("64x128", "one-texel", "uniform", "misses", "edge-shared")
+
+
+def same_on_both_routes(case, scale):
+    """The adjoint forced onto each route gives the same bits, twice (the
+    map fits a block: [envmap]'s 64x128 cases and the route's edge)."""
+    from fovtrace_torch.kernels import envmap
+
+    fx, fy, env, g = envmap_inputs(case)
+    h, w = env.shape[:2]
+    got = []
+    for route in (*envmap.ROUTES, *envmap.ROUTES):
+        with envmap.forced_route(route):
+            got.append(envmap.adjoint(fx, fy, g, h, w, scale).view(
+                torch.int32))
+    same = all(torch.equal(got[0], t) for t in got[1:])
+    print(f"[envmap] {case}: the adjoint forced onto each route twice, bit "
+          f"for bit the same {same}")
+    assert same, case
+
+
+def shared_route_refused(scale):
+    """The shared route forced on a map that no block holds is refused:
+    the wrapper raises, and nothing else runs (no launch counted, no
+    plain version)."""
+    from fovtrace_torch import kernels
+    from fovtrace_torch.kernels import envmap
+
+    fx, fy, env, g = envmap_inputs("edge-global")
+    h, w = env.shape[:2]
+    kernels.CALLS.clear()
+    with envmap.forced_route("shared"):
+        try:
+            envmap.adjoint(fx, fy, g, h, w, scale)
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError(f"the shared route ran on a {h}x{w} map")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in envmap.counters().items() if v}
+    print(f"[envmap] the shared route forced on a {h}x{w} map: refused "
+          f"({refused}); launches and plain calls {counts}")
+    assert not counts, counts
+
+
 def capture_envmap(earth, cam, cfg, mesh_dev):
     """The lookups of one earth bench frame ([(fx, fy, map)] per bounce)
     and the adjoints of one dense train step at W x H ([(fx, fy, g, h, w,
@@ -1902,8 +2014,10 @@ def envmap_bound(n, h, w, kind) -> float:
 
 def envmap_phase(earth, cam, cfg, card):
     """The envmap kernels against their plain versions at the CPU tests'
-    shapes, the seeded worst cases and the lookups of one earth bench
-    frame and one dense train step (its real cotangents); at the bench
+    shapes, the seeded worst cases (each adjoint's device time queued
+    behind a spin), the adjoint's routes (`check_routes`,
+    `same_on_both_routes`, `shared_route_refused`) and the lookups of one
+    earth bench frame and one dense train step (its real cotangents); at the bench
     frame's bounce 0 and the train step's bounce 0 each kernel's time
     (CUDA events), its plain version's, its bound and the library calls
     that compute the same (grid_sample for the lookup; its backward's d
@@ -1923,8 +2037,20 @@ def envmap_phase(earth, cam, cfg, card):
         for k, v in e.items():
             errs[k] = max(errs[k], v)
 
+    check_routes()
     for case in ENVMAP_CASES:
-        keep(check_envmap(case, *envmap_inputs(case), cfg.envmap_scale)[0])
+        fx, fy, env, g = envmap_inputs(case)
+        keep(check_envmap(case, fx, fy, env, g, cfg.envmap_scale)[0])
+        h, w = env.shape[:2]
+        adj = lambda: envmap.adjoint(fx, fy, g, h, w, cfg.envmap_scale)
+        ms = queued_ms(adj)
+        bound = envmap_bound(fx.shape[0], h, w, "adjoint")
+        print(f"[envmap] {case}: adjoint on the {envmap.route_on_card(h, w)} "
+              f"route, queued behind a spin {ms:.4f} ms a call, bound "
+              f"{bound:.4f} ms ({bound / ms:.1%})  [{card}]")
+    for case in ROUTE_CASES:
+        same_on_both_routes(case, cfg.envmap_scale)
+    shared_route_refused(cfg.envmap_scale)
     frame, adjoints = capture_envmap(earth, cam, cfg, cam.device)
     assert len(frame) == cfg.max_depth and len(adjoints) == 2, \
         (len(frame), len(adjoints))
@@ -2963,6 +3089,95 @@ def probe_times(root: str) -> int:
     return 0
 
 
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def adjoint_times(root: str) -> int:
+    """`python3 chip_smoke.py --adjoint-times [ROOT]`: the envmap adjoint
+    and the material adjoint of the checkout at ROOT (this file's own by
+    default; a parent's `git archive` to compare with) on the same inputs:
+    the envmap's seeded worst cases ([envmap]'s ENVMAP_CASES at the
+    1920x1088 front and its 64x128 directions), the bench frame's bounce 0
+    (its lookups' coordinates, a seeded cotangent) and both bounces of
+    one dense train step (their own cotangents); the material adjoint at
+    the three fronts of an earth bench frame ([material]'s, seeded
+    cotangents). Per input: three device times a call, queued behind a
+    spin (`queued_ms`), a digest of the output's bytes and one of the
+    inputs'. It uses only the envmap and material modules' entry points
+    that every version of them has had, so a parent's kernels and the
+    change's are measured alike; equal digests mean the same bits. Prints
+    one JSON line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import fovtrace_torch
+    from fovtrace_torch.config import pin_fp32
+    from fovtrace_torch.core.camera import Camera
+    from fovtrace_torch.kernels import envmap, material
+    from fovtrace_torch.scene import procedural
+
+    assert fovtrace_torch.__file__.startswith(root + os.sep), \
+        fovtrace_torch.__file__
+    dev = torch.device(DEVICE)
+    pin_fp32(dev)
+    card = card_line()
+    print(f"[adjoint times] {os.path.dirname(fovtrace_torch.__file__)}  "
+          f"[{card}]", flush=True)
+    rows = {}
+
+    def measure(name, fn, inputs, bound):
+        out = fn()
+        torch.cuda.synchronize()
+        ms = [queued_ms(fn) for _ in range(3)]
+        rows[name] = dict(device_ms=ms, bound_ms=bound, digest=digest(out),
+                          inputs=digest(*inputs))
+        print(f"[adjoint times] {name:40s} " + " / ".join(
+            f"{t:.4f}" for t in ms) + f" ms a call, bound {bound:.4f} ms; "
+            f"output {rows[name]['digest']}, inputs {rows[name]['inputs']}",
+            flush=True)
+
+    cam = Camera.create(eye=(3.0, 2.5, 4.0), target=(0.0, 0.8, 0.0),
+                        device=dev)
+    earth = procedural.earth_scene(dev)
+    _, _, cfg = bench_probe_frac(earth, cam)
+    scale = cfg.envmap_scale
+    for case in ("64x128", "one-texel", "uniform", "misses", "hdr",
+                 "edge-shared", "edge-global"):
+        fx, fy, env, g = envmap_inputs(case)
+        h, w = env.shape[:2]
+        measure(f"envmap {case}", lambda: envmap.adjoint(fx, fy, g, h, w,
+                                                         scale),
+                (fx, fy, g), envmap_bound(fx.shape[0], h, w, "adjoint"))
+    frame, adjoints = capture_envmap(earth, cam, cfg, dev)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    fx, fy, env, _ = frame[0]
+    g = torch.randn((3, fx.shape[0]), generator=gen, device=DEVICE)
+    h, w = env.shape[:2]
+    measure("envmap bench frame bounce 0", lambda: envmap.adjoint(
+        fx, fy, g, h, w, scale), (fx, fy, g),
+        envmap_bound(fx.shape[0], h, w, "adjoint"))
+    for b, (fx, fy, g, h, w, sc) in enumerate(adjoints):
+        measure(f"envmap dense train step bounce {b}",
+                lambda: envmap.adjoint(fx, fy, g, h, w, sc), (fx, fy, g),
+                envmap_bound(fx.shape[0], h, w, "adjoint"))
+    lookups = capture_lookups(earth, cam, cfg)
+    for label, (ids, table) in zip(("G-buffer", "bounce-0 surface",
+                                    "bounce-0 shade"), lookups):
+        n, (m, k) = ids.shape[0], table.shape
+        g = torch.randn((k, n), generator=gen, device=DEVICE)
+        measure(f"material {label} K {k}", lambda: material.adjoint(
+            ids, g, m), (ids, g), material_bound(n, m, k))
+    print(json.dumps({"root": root, "card": card, "times": rows}))
+    return 0
+
+
 def attribution(root: str) -> int:
     """`python3 chip_smoke.py --attribution [ROOT]`: the checkout at
     ROOT's (this file's own by default; a parent's `git archive` to
@@ -3020,6 +3235,8 @@ def main() -> int:
         return probe_times(sys.argv[2] if len(sys.argv) > 2 else here)
     if len(sys.argv) > 1 and sys.argv[1] == "--attribution":
         return attribution(sys.argv[2] if len(sys.argv) > 2 else here)
+    if len(sys.argv) > 1 and sys.argv[1] == "--adjoint-times":
+        return adjoint_times(sys.argv[2] if len(sys.argv) > 2 else here)
     from fovtrace_torch import _build
     from fovtrace_torch.config import RenderConfig, pin_fp32
     from fovtrace_torch.core.camera import Camera

@@ -18,6 +18,7 @@ launches and the plain versions their calls (`counters`), in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from pathlib import Path
@@ -33,6 +34,15 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc" / "envmap.cu"
 # bytes of adjoint scratch per map entry (texel channel): a 64-bit sum and
 # a 32-bit max (csrc/envmap.cu `fov_envmap_adjoint`)
 SCRATCH_BYTES = 12
+# copies of csrc/envmap.cu's adjoint constants (tests/test_torch_envmap.py
+# holds them to the source): a CTA's threads, the shared memory a map
+# entry takes on the SHARED route (a sum's two 32-bit words and a scale
+# code), the lanes of one run a warp reduces before one of them adds it
+ADJ_THREADS = 512
+SHARED_ENTRY_BYTES = 9
+AGGREGATE_MIN = 16
+# the adjoint's routes, by the number the C entry points use
+ROUTES = ("shared", "global")
 
 COUNTED = ("envmap_lookup", "envmap_dxy", "envmap_adjoint",
            "envmap_lookup_plain", "envmap_dxy_plain", "envmap_adjoint_plain")
@@ -42,9 +52,58 @@ def c_signatures() -> dict:
     """{C entry point: (argtypes, restype)} of the envmap library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # the tensors' pointers, then n, h, w, scale and the stream
+    # (the forced adjoint takes its route after the scale; the route
+    # query takes h, w)
     return {"fov_envmap_lookup": ([p] * 4 + [i] * 3 + [f, p], i),
             "fov_envmap_dxy": ([p] * 6 + [i] * 3 + [f, p], i),
-            "fov_envmap_adjoint": ([p] * 5 + [i] * 3 + [f, p], i)}
+            "fov_envmap_adjoint": ([p] * 5 + [i] * 3 + [f, p], i),
+            "fov_envmap_adjoint_forced": ([p] * 5 + [i] * 3 + [f, i, p], i),
+            "fov_envmap_adjoint_route": ([i, i], i)}
+
+
+def shared_bytes(h: int, w: int) -> int:
+    """The shared memory the adjoint's shared route takes for an h x w
+    map: its 3 h w entries, rounded up to a multiple of 4, x
+    SHARED_ENTRY_BYTES (csrc/envmap.cu `padded_entries`)."""
+    return -(-3 * h * w // 4) * 4 * SHARED_ENTRY_BYTES
+
+
+def adjoint_route(h: int, w: int, optin: int) -> str:
+    """The adjoint's route for an h x w map on a card whose blocks may opt
+    in to `optin` bytes of shared memory: "shared" where one block holds
+    the map's sums, their high words and scale codes (`shared_bytes`),
+    else "global" (csrc/envmap.cu `adjoint_route`, which decides on the
+    card; 64x128 is "shared" on the H100's 232,448 bytes, a file scene's
+    800x1600 HDR "global")."""
+    return ROUTES[0 if shared_bytes(h, w) <= optin else 1]
+
+
+def route_on_card(h: int, w: int) -> str:
+    """The route `fov_envmap_adjoint` takes for an h x w map on the
+    current card (its own choice, from the card's opt-in limit)."""
+    got = load_cuda_library().fov_envmap_adjoint_route(h, w)
+    if got not in (0, 1):
+        raise RuntimeError(f"fov_envmap_adjoint_route({h}, {w}) gave {got}")
+    return ROUTES[got]
+
+
+_FORCED = None
+
+
+@contextlib.contextmanager
+def forced_route(route: str):
+    """Within the block, the adjoint's CUDA launches take `route`
+    ("shared" or "global") instead of the card's choice: both give the
+    same bits; "shared" on a map no block holds is refused by the runtime
+    and raises (no other route is tried)."""
+    global _FORCED
+    if route not in ROUTES:
+        raise ValueError(f"the adjoint's routes are {ROUTES}, not {route!r}")
+    before, _FORCED = _FORCED, route
+    try:
+        yield
+    finally:
+        _FORCED = before
 
 
 @functools.cache
@@ -187,10 +246,12 @@ def adjoint_plain(fx, fy, g, h: int, w: int, scale: float) -> torch.Tensor:
 
 
 # ------------------------------------------------------------- wrappers
-def _launch(name: str, tensors, ints, scale: float) -> None:
-    """`kernels.launch` of the library's fov_`name` with n, h, w and the
-    scale."""
-    kernels.launch(load_cuda_library(), name, tensors, *ints, scale)
+def _launch(name: str, tensors, ints, scale: float, *more) -> None:
+    """`kernels.launch` of the library's fov_`name` with n, h, w, the
+    scale and `more` (a forced route), counted under the kernel's name
+    (the forced adjoint's as the adjoint's)."""
+    kernels.launch(load_cuda_library(), name, tensors, *ints, scale, *more,
+                   count=name.removesuffix("_forced"))
 
 
 def lookup(fx, fy, envmap, scale: float) -> torch.Tensor:
@@ -226,8 +287,10 @@ def dxy(fx, fy, envmap, g, scale: float):
 
 def adjoint(fx, fy, g, h: int, w: int, scale: float) -> torch.Tensor:
     """[H, W, 3]: the gradient of <lookup(fx, fy, envmap, scale), g> with
-    respect to the map, the same bits on every run. Launches the three
-    adjoint kernels on CUDA tensors, the plain version on CPU tensors."""
+    respect to the map, the same bits on every run. Launches the adjoint
+    kernel (three passes in one cooperative launch, on the card's route
+    or the one `forced_route` names) on CUDA tensors, the plain version
+    on CPU tensors."""
     _check(fx, fy, h, w, g=g)
     if fx.device.type == "cpu":
         return adjoint_plain(fx, fy, g, h, w, scale)
@@ -237,7 +300,12 @@ def adjoint(fx, fy, g, h: int, w: int, scale: float) -> torch.Tensor:
     out = torch.empty((h, w, 3), dtype=torch.float32, device=fx.device)
     scratch = torch.empty((SCRATCH_BYTES * 3 * h * w,), dtype=torch.uint8,
                           device=fx.device)
-    _launch("envmap_adjoint", (fx, fy, g, scratch, out), (n, h, w), scale)
+    tensors = (fx, fy, g, scratch, out)
+    if _FORCED is None:
+        _launch("envmap_adjoint", tensors, (n, h, w), scale)
+    else:
+        _launch("envmap_adjoint_forced", tensors, (n, h, w), scale,
+                ROUTES.index(_FORCED))
     return out
 
 

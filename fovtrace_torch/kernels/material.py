@@ -126,8 +126,9 @@ def gather(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def adjoint(ids: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
     """[M, K] f32: the [K, N] cotangent `g` summed into the rows its ids
-    name, in an order fixed by (N, M, K). Launches the two adjoint
-    kernels on a CUDA tensor, the plain version on a CPU tensor."""
+    name, in an order fixed by (N, M, K). Launches the adjoint kernel
+    (its two passes in one cooperative launch) on a CUDA tensor, the
+    plain version on a CPU tensor."""
     if g.dim() != 2 or g.shape[1] != ids.shape[0]:
         raise ValueError(f"the cotangent must be [K, {ids.shape[0]}], got "
                          f"{tuple(g.shape)}")

@@ -10,9 +10,12 @@ and the row-copy probe on each of its table paths; then the material
 table's gather and adjoint (csrc/material.cu) at the CPU tests' shapes,
 at the 1920x1088 front and at the largest table they take; then the
 envmap's lookup, d(fx, fy) and adjoint (csrc/envmap.cu) at the CPU
-tests' maps and directions, at seeded 1920x1088 worst cases and on an
-800x1600 map (chip_smoke.py's [envmap] cases, inputs and checks), with
-nonfinite cotangents, and through EnvmapLookup. Seeded rays. Marked `cuda`; skipped without a GPU.
+tests' maps and directions, at seeded 1920x1088 worst cases, on an
+800x1600 map and on the two maps either side of the adjoint's route
+boundary (chip_smoke.py's [envmap] cases, inputs and checks), with
+nonfinite cotangents, through EnvmapLookup, and on both of the
+adjoint's routes (the same bits; the shared route refused where no block
+holds the map). Seeded rays. Marked `cuda`; skipped without a GPU.
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -736,3 +739,23 @@ def test_envmap_function_on_the_card(dev):
     assert envmap.counters()["envmap_dxy"] == 1
     with pytest.raises(ValueError):
         envmap.lookup(fx, fy, env.cpu(), 2.0)
+
+
+def test_envmap_adjoint_route_on_the_card(dev):
+    """The adjoint's route on the card (the C entry point's choice) is the
+    wrapper's `adjoint_route` at the card's opt-in shared memory, for
+    each map checked; on the H100 the one ENVMAP_ROUTES names."""
+    chip_smoke.check_routes()
+
+
+@pytest.mark.parametrize("case", chip_smoke.ROUTE_CASES)
+def test_envmap_adjoint_routes_agree(dev, case):
+    """Where a block holds the map, the shared and the global route give
+    the same bits, on two runs each."""
+    chip_smoke.same_on_both_routes(case, 2.0)
+
+
+def test_envmap_shared_route_refused(dev):
+    """The shared route forced on a map no block holds raises, and falls
+    back to nothing: no launch is counted and no plain version runs."""
+    chip_smoke.shared_route_refused(2.0)

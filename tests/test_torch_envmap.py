@@ -428,12 +428,63 @@ def test_plain_versions_on_the_cpu():
 
 def test_scratch_size_matches_the_source():
     """The wrapper's scratch per map entry: the source's 64-bit sum and
-    32-bit max."""
+    32-bit max, both zeroed by the kernel."""
     text = CSRC.read_text()
     assert "unsigned long long* sum = (unsigned long long*)scratch;" in text
     assert "unsigned* mx = (unsigned*)(sum + entries);" in text
-    assert "12 * (size_t)entries" in text
+    assert "a.mx[e] = 0u;" in text and "a.sum[e] = 0ull;" in text
     assert envmap.SCRATCH_BYTES == 8 + 4 == 12
+
+
+def test_adjoint_constants_match_the_source():
+    """The wrapper's copies of the adjoint's launch and route constants
+    are the source's, and the SHARED route's shared memory is the
+    kernel's layout: two 32-bit words and a byte a map entry."""
+    text = CSRC.read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    for name in ("ADJ_THREADS", "SHARED_ENTRY_BYTES", "AGGREGATE_MIN"):
+        assert consts[name] == getattr(envmap, name), name
+    assert envmap.SHARED_ENTRY_BYTES == 4 + 4 + 1
+    assert "return (3 * h * w + 3) / 4 * 4;" in text
+    assert "padded_entries(h, w) * SHARED_ENTRY_BYTES <= optin ? 0 : 1" in text
+    assert "(size_t)padded_entries(a.h, a.w) * SHARED_ENTRY_BYTES" in text
+    assert envmap.ADJ_THREADS % 32 == 0 and envmap.AGGREGATE_MIN <= 32
+
+
+# (h, w, opt-in bytes) -> route: the H100's 232,448 bytes hold earth's
+# 64x128 and 64x134 (9 x 25,728 = 231,552 bytes), not 64x135 (233,280)
+# nor a file scene's 800x1600 HDR; 1x8608 (232,416) but not 1x8609
+# (25,827 entries padded to 25,828: 232,452); a card without the opt-in
+# (48 KB) holds none of them but the CPU tests' 8x16
+@pytest.mark.parametrize("h, w, optin, want", [
+    (64, 128, 232448, "shared"), (64, 134, 232448, "shared"),
+    (64, 135, 232448, "global"), (800, 1600, 232448, "global"),
+    (1, 8608, 232448, "shared"), (1, 8609, 232448, "global"),
+    (64, 128, 49152, "global"), (8, 16, 49152, "shared")])
+def test_adjoint_route(h, w, optin, want):
+    """The host's route for an h x w map: "shared" exactly where a block's
+    opt-in shared memory holds its 3 h w entries, padded to a multiple of
+    4, x SHARED_ENTRY_BYTES."""
+    assert envmap.adjoint_route(h, w, optin) == want
+    assert (want == "shared") == (
+        -(-3 * h * w // 4) * 4 * envmap.SHARED_ENTRY_BYTES <= optin)
+
+
+def test_forced_route_names_a_route():
+    """`forced_route` takes "shared" or "global" and restores the card's
+    choice after its block; CPU tensors run the plain version either
+    way."""
+    with pytest.raises(ValueError):
+        with envmap.forced_route("smem"):
+            pass
+    fx, fy, g = torch.rand(10) * 15, torch.rand(10) * 7, torch.rand(3, 10)
+    want = envmap.adjoint_plain(fx, fy, g, 8, 16, 2.0)
+    for route in envmap.ROUTES:
+        with envmap.forced_route(route):
+            assert envmap._FORCED == route
+            assert torch.equal(envmap.adjoint(fx, fy, g, 8, 16, 2.0), want)
+    assert envmap._FORCED is None
 
 
 def test_c_signatures_match_the_source():
@@ -460,11 +511,13 @@ class _Lib:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
-@pytest.mark.parametrize("kind", ["lookup", "dxy", "adjoint"])
+@pytest.mark.parametrize("kind", ["lookup", "dxy", "adjoint",
+                                  "adjoint_forced"])
 def test_launch_arguments_fit_the_c_entry_points(kind, monkeypatch):
     """`_launch` passes each C entry point its pointers, n, h, w, the
-    scale and the stream, as many as its ctypes signature has, and counts
-    the launch. CPU tensors, a stand-in library."""
+    scale (the forced adjoint its route after it) and the stream, as many
+    as its ctypes signature has, and counts the launch under the
+    kernel's name. CPU tensors, a stand-in library."""
     lib = _Lib()
     monkeypatch.setattr(envmap, "load_cuda_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -477,13 +530,16 @@ def test_launch_arguments_fit_the_c_entry_points(kind, monkeypatch):
                "adjoint": (fx, fy, torch.zeros(3, n),
                            torch.zeros(envmap.SCRATCH_BYTES * 3 * h * w,
                                        dtype=torch.uint8),
-                           torch.zeros(h, w, 3))}[kind]
+                           torch.zeros(h, w, 3))}[kind.removesuffix("_forced")]
+    more = (1,) if kind == "adjoint_forced" else ()
     kernels.CALLS.clear()
-    envmap._launch(f"envmap_{kind}", tensors, (n, h, w), 2.0)
+    envmap._launch(f"envmap_{kind}", tensors, (n, h, w), 2.0, *more)
     (name, args), = lib.calls
     assert name == f"fov_envmap_{kind}"
     argtypes, _ = envmap.c_signatures()[name]
     assert len(args) == len(argtypes)
     assert list(args[:len(tensors)]) == [t.data_ptr() for t in tensors]
-    assert args[len(tensors):] == (n, h, w, 2.0, 0)
-    assert envmap.counters()[f"envmap_{kind}"] == 1
+    assert args[len(tensors):] == (n, h, w, 2.0, *more, 0)
+    counted = kind.removesuffix("_forced")
+    assert envmap.counters()[f"envmap_{counted}"] == 1
+    assert sum(kernels.CALLS.values()) == 1
