@@ -1,5 +1,5 @@
-"""Per-stage timing and the CSV report (counterpart of
-`fovtrace/app/profiler.py`).
+"""Per-stage timing, the CSV report (counterpart of
+`fovtrace/app/profiler.py`), and the frame's spans.
 
 `StageTimer.stage` times one stage on the host clock and waits for the
 stage's result before it stops the clock: a CUDA tensor in the result
@@ -7,6 +7,35 @@ synchronises its device, CPU tensors need nothing. The frame's own
 ms/frame is the CLI's host clock around a whole frame; the stage sum
 is a diagnostic (each synchronise costs the overlap of host and device
 that the unsynchronised frame keeps).
+
+`span(name)` is the program's own range: a torch.profiler range while a
+profiler runs (`trace_profile`, the CLI's --trace, a benchmark's traced
+window), so it lands in the profiler's trace beside the device kernels,
+on their clock; with no profiler it is a shared no-op context, at the
+cost of one flag check. The forward frame opens (render.pipeline,
+dist.sharding, dist.collectives and the sync sites they reach):
+
+  fov.frame                     the whole render_frame / render_sharded
+    fov.gbuffer
+    fov.sampling
+      fov.sampling.cache        validate_cache (sharded: the caches'
+                                gather, under a first fov.sampling)
+      fov.sampling.saliency     the saliency (sharded: its halo exchange)
+      fov.sampling.mask         sample_mask
+    fov.compact
+    fov.shade
+      fov.shade.bounce<k>       one per bounce of shade_v
+    fov.reconstruct
+      fov.reconstruct.{jfa,sibson,pullpush,atrous}   those that run
+
+and, inside whichever span reaches them (gather_frame's outside any):
+
+  fov.sync.<site>               each blocking exchange between host and
+                                device (one sync each on a card)
+  fov.coll.<op>                 each torch.distributed call of
+                                dist.collectives (none without a group)
+
+A span never reads a device value and changes nothing that it encloses.
 """
 
 from __future__ import annotations
@@ -18,6 +47,17 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of the program's range `name`: torch.profiler's
+    record_function while a profiler runs, else a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _cuda_devices(obj, found: set) -> set:

@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.core import mathx
 from fovtrace_torch.core import vec as vecm
 
@@ -25,13 +26,16 @@ PM_ORTHO_HEIGHT = "ortho_height"
 def _lu_host(m: torch.Tensor):
     """LAPACK sgetrf of a 4x4 on the host: (lu, perm) with m[perm] = L U.
     Each call is a host round trip, counted as kernels.CALLS["inv4_host"]
-    (on a CUDA tensor it waits for the device)."""
+    (on a CUDA tensor it waits for the device: span
+    fov.sync.inv4_download)."""
     from scipy.linalg import lapack
 
     from fovtrace_torch import kernels
 
     kernels.CALLS["inv4_host"] += 1
-    lu, piv, info = lapack.sgetrf(m.detach().cpu().numpy().astype(np.float32))
+    with span("fov.sync.inv4_download"):
+        m_host = m.detach().cpu()
+    lu, piv, info = lapack.sgetrf(m_host.numpy().astype(np.float32))
     if info != 0:
         raise ValueError(f"singular camera matrix (sgetrf info {info})")
     perm = np.arange(4)
@@ -50,6 +54,14 @@ def _lu_inverse(lu, perm) -> np.ndarray:
     return blas.strsm(1.0, lu, y, side=0, lower=0, diag=0)
 
 
+def _upload_inverse(lu, perm, device) -> torch.Tensor:
+    """A^-1 from A's factors, on `device` (a blocking copy from the
+    host's pageable memory: span fov.sync.inv4_upload)."""
+    x = _lu_inverse(lu, perm)
+    with span("fov.sync.inv4_upload"):
+        return torch.as_tensor(x, device=device)
+
+
 class _Inv4(torch.autograd.Function):
     """A^-1 with the reference's adjoint: A_bar = -solve(A^T, X_bar) X^T,
     the transposed solve run on A's LU factors. Forming the adjoint with
@@ -59,7 +71,7 @@ class _Inv4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, m):
         lu, perm = _lu_host(m)
-        x = torch.as_tensor(_lu_inverse(lu, perm), device=m.device)
+        x = _upload_inverse(lu, perm, m.device)
         ctx.save_for_backward(x)
         ctx.lu = (lu, perm)
         return x
@@ -94,7 +106,7 @@ def inv4(m: torch.Tensor) -> torch.Tensor:
     the backward pass when `m` requires grad (_Inv4)."""
     if m.requires_grad:
         return _Inv4.apply(m)
-    return torch.as_tensor(_lu_inverse(*_lu_host(m)), device=m.device)
+    return _upload_inverse(*_lu_host(m), m.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +143,8 @@ class Camera:
         rot = torch.stack([s, u, -f], dim=0)              # [3,3]
         trans = -(rot @ self.eye)
         top = torch.cat([rot, trans[:, None]], dim=1)     # [3,4]
-        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=self.device)
+        with span("fov.sync.view_matrix"):
+            bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=self.device)
         return torch.cat([top, bottom], dim=0)
 
     def proj_matrix(self, aspect: float) -> torch.Tensor:

@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.core import mathx
 
 
@@ -20,8 +21,9 @@ def uncharted2_tonemap(color: torch.Tensor, exposure_bias: float = 2.0,
     """Uncharted2 filmic curve. Like the reference it raises to the power
     2.2 (not 1/2.2)."""
     result = _uncharted2_curve(exposure_bias * color)
-    white = _uncharted2_curve(torch.tensor(11.2, dtype=torch.float32,
-                                           device=color.device))
+    with span("fov.sync.tonemap_white"):
+        white = torch.tensor(11.2, dtype=torch.float32, device=color.device)
+    white = _uncharted2_curve(white)
     result = result * (1.0 / white)
     return torch.pow(torch.clamp_min(result, 0.0), gamma)
 

@@ -14,6 +14,9 @@ depth caches, the coarse pull-push levels and the halos).
 
 With no process group (`Mesh.group is None`, a single process) every
 collective is the identity and every halo past the screen's edge is zero.
+Each torch.distributed call is in an `app.profiler.span` named
+fov.coll.<op> (<op> the function's name, without a trailing underscore);
+the identity opens none.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Any, List, Sequence
 
 import torch
 import torch.distributed as dist
+
+from fovtrace_torch.app.profiler import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +46,8 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.group is None:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
+    with span("fov.coll.all_reduce_sum"):
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
     return y
 
 
@@ -58,7 +64,8 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 0
     shape[dim] = n * mesh.size
     buf = x.new_zeros(shape)
     buf.narrow(dim, mesh.rank * n, n).copy_(x)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    with span("fov.coll.all_gather_rows"):
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     return buf
 
 
@@ -83,7 +90,8 @@ def neighbour_rows(top: torch.Tensor, bottom: torch.Tensor, mesh: Mesh):
     buf = top.new_zeros((mesh.size, 2) + tuple(top.shape))
     buf[mesh.rank, 0] = top
     buf[mesh.rank, 1] = bottom
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    with span("fov.coll.neighbour_rows"):
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
     prev = buf[mesh.rank - 1, 1] if mesh.rank > 0 else torch.zeros_like(bottom)
     nxt = buf[mesh.rank + 1, 0] if mesh.rank < mesh.size - 1 \
         else torch.zeros_like(top)
@@ -97,7 +105,8 @@ def broadcast_(tensors: Sequence[torch.Tensor], mesh: Mesh,
     if mesh.group is None:
         return
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.broadcast(flat, src=src, group=mesh.group)
+    with span("fov.coll.broadcast"):
+        dist.broadcast(flat, src=src, group=mesh.group)
     with torch.no_grad():
         for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(v.view_as(t))

@@ -23,6 +23,12 @@ With a budget that drops nothing, `render_sharded` equals
 height must be a multiple of 8, which keeps the dither tables and the
 sparse sampling floor globally aligned. A row block is traced in
 scanline order, not in the single frame's 16x16 tiles.
+
+A frame opens the single frame's spans (`app.profiler.span`, listed in
+render.pipeline) under the same names, and each collective its
+fov.coll.<op> span. The caches are gathered first, in a fov.sampling /
+fov.sampling.cache span of their own, so a sharded frame holds two
+fov.sampling spans.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.config import RenderConfig, pin_fp32
 from fovtrace_torch.core import color as colorx
 from fovtrace_torch.core import reproject, vec
@@ -75,7 +82,8 @@ def block_height(config: RenderConfig, mesh: Mesh) -> int:
 
 
 def _reconstruct(shading_rgb: Vec3, shading_alpha, gbuf, config, mesh, y0):
-    """pipeline.stage_reconstruct on a row block (dist.recon)."""
+    """pipeline.stage_reconstruct on a row block (dist.recon), each
+    filter in its span."""
     recon = config.reconstruction
     extras: Dict[str, torch.Tensor] = {}
     out_rgb, out_a = shading_rgb, shading_alpha
@@ -85,26 +93,30 @@ def _reconstruct(shading_rgb: Vec3, shading_alpha, gbuf, config, mesh, y0):
         sh_rows = torch.cat([vec.to_rows(shading_rgb),
                              shading_alpha[..., None]], dim=-1)
         if recon in ("jfa", "all"):
-            _, extras["jfa"] = recon_mod.jfa_sharded(sh_rows, mesh)
+            with span("fov.reconstruct.jfa"):
+                _, extras["jfa"] = recon_mod.jfa_sharded(sh_rows, mesh)
             out_rgb = vec.from_rows(extras["jfa"][..., :3])
             out_a = extras["jfa"][..., 3]
         if recon in ("sibson", "all"):
-            extras["sibson"] = recon_mod.sibson_sharded(
-                sh_rows, mesh, config.sibson_max_radius)
+            with span("fov.reconstruct.sibson"):
+                extras["sibson"] = recon_mod.sibson_sharded(
+                    sh_rows, mesh, config.sibson_max_radius)
             out_rgb = vec.from_rows(extras["sibson"][..., :3])
             out_a = extras["sibson"][..., 3]
     if recon in ("pullpush", "atrous", "all"):
-        pp_rgb, pp_a = recon_mod.pull_push_sharded(shading_rgb,
-                                                   shading_alpha, mesh)
+        with span("fov.reconstruct.pullpush"):
+            pp_rgb, pp_a = recon_mod.pull_push_sharded(shading_rgb,
+                                                       shading_alpha, mesh)
         extras["pullpush"] = torch.cat([vec.to_rows(pp_rgb),
                                         pp_a[..., None]], dim=-1)
         out_rgb, out_a = pp_rgb, pp_a
         if recon in ("atrous", "all"):
-            at = recon_mod.atrous_sharded(
-                pp_rgb, gbuf["position"], gbuf["normal"],
-                config.atrous_iterations, config.atrous_c_phi,
-                config.atrous_n_phi, config.atrous_p_phi, mesh, y0,
-                config.height)
+            with span("fov.reconstruct.atrous"):
+                at = recon_mod.atrous_sharded(
+                    pp_rgb, gbuf["position"], gbuf["normal"],
+                    config.atrous_iterations, config.atrous_c_phi,
+                    config.atrous_n_phi, config.atrous_p_phi, mesh, y0,
+                    config.height)
             extras["atrous"] = torch.cat([vec.to_rows(at), pp_a[..., None]],
                                          dim=-1)
             out_rgb = at
@@ -121,6 +133,12 @@ def render_sharded(scene, camera, gaze_px, state: pipeline.FrameState,
     the block: image_rgb / image_alpha and, with full_outputs, the row
     buffers hold this tile's rows; gaze_target, ray_count, rays_dropped
     and rays_traced are the frame's, the same on every rank."""
+    with span("fov.frame"):
+        return _render_block(scene, camera, gaze_px, state, config, mesh)
+
+
+def _render_block(scene, camera, gaze_px, state: pipeline.FrameState,
+                  config: RenderConfig, mesh: Mesh):
     pin_fp32(mesh.device)
     gaze_px = (int(gaze_px[0]), int(gaze_px[1]))
     gy, gx = gaze_px
@@ -130,53 +148,64 @@ def render_sharded(scene, camera, gaze_px, state: pipeline.FrameState,
     dev = mesh.device
 
     # the temporal caches are read at arbitrary reprojected pixels
-    caches = coll.all_gather_rows(
-        torch.cat([state.history, state.depth_cache[None]]), mesh, dim=1)
+    with span("fov.sampling"), span("fov.sampling.cache"):
+        caches = coll.all_gather_rows(
+            torch.cat([state.history, state.depth_cache[None]]), mesh, dim=1)
     hist_full, depth_full = caches[:4], caches[4]
 
     # ---- 1. G-buffer rows --------------------------------------------------
-    gbuf = gbuffer_mod.trace_gbuffer(scene, camera, state.prev_camera, w, h,
-                                     config, y0=y0, block_h=bh)
+    with span("fov.gbuffer"):
+        gbuf = gbuffer_mod.trace_gbuffer(scene, camera, state.prev_camera, w,
+                                         h, config, y0=y0, block_h=bh)
 
     # ---- 2. sampling: cache check, saliency on halos, mask -----------------
-    is_valid, _, _, fetched = reproject.validate_cache(
-        gbuf["reproject_u"], gbuf["reproject_v"], gbuf["position"],
-        depth_full, state.prev_camera.eye, w, h, config.cache_epsilon,
-        history=hist_full)
-    if not config.temporal:
-        is_valid = torch.zeros_like(is_valid)
-    # the gaze pixel's depth and position, from the tile that owns it
-    p = gbuf["position"]
-    gaze_rows = torch.zeros(4, dtype=torch.float32, device=dev)
-    if y0 <= gy < y0 + bh:
-        ly = gy - y0
-        gaze_rows = torch.stack([gbuf["depth"][ly, gx], p.x[ly, gx],
-                                 p.y[ly, gx], p.z[ly, gx]])
-    gaze_rows = coll.all_reduce_sum(gaze_rows, mesh)
-    focal, gaze_target = gaze_rows[0], gaze_rows[1:]
+    with span("fov.sampling"):
+        with span("fov.sampling.cache"):
+            is_valid, _, _, fetched = reproject.validate_cache(
+                gbuf["reproject_u"], gbuf["reproject_v"], gbuf["position"],
+                depth_full, state.prev_camera.eye, w, h,
+                config.cache_epsilon, history=hist_full)
+            if not config.temporal:
+                is_valid = torch.zeros_like(is_valid)
+        # the gaze pixel's depth and position, from the tile that owns it
+        p = gbuf["position"]
+        gaze_rows = torch.zeros(4, dtype=torch.float32, device=dev)
+        if y0 <= gy < y0 + bh:
+            ly = gy - y0
+            gaze_rows = torch.stack([gbuf["depth"][ly, gx], p.x[ly, gx],
+                                     p.y[ly, gx], p.z[ly, gx]])
+        gaze_rows = coll.all_reduce_sum(gaze_rows, mesh)
+        focal, gaze_target = gaze_rows[0], gaze_rows[1:]
 
-    planes = [*gbuf["albedo"], gbuf["depth"], *gbuf["normal"], gbuf["shadow"],
-              gbuf["reproject_u"], gbuf["reproject_v"]]
-    pad = halo_mod.halo_pad_planes(planes, SALIENCY_HALO, mesh)
-    gbuf_pad = {"albedo": Vec3(*pad[0:3]), "depth": pad[3],
-                "normal": Vec3(*pad[4:7]), "shadow": pad[7],
-                "reproject_u": pad[8], "reproject_v": pad[9]}
-    sal = halo_mod.crop_rows(saliency.compute_saliency(
-        gbuf_pad, gaze_px, pipeline.bbox_diagonal(scene),
-        config.saliency_block, row_offset=y0 - SALIENCY_HALO, focal=focal),
-        SALIENCY_HALO)
-    # the dither tables and the sparse floor stay aligned: y0 % 8 == 0
-    mask = pipeline.sample_mask(sal, gaze_px, state.frame, config, y0=y0)
+        with span("fov.sampling.saliency"):
+            planes = [*gbuf["albedo"], gbuf["depth"], *gbuf["normal"],
+                      gbuf["shadow"], gbuf["reproject_u"],
+                      gbuf["reproject_v"]]
+            pad = halo_mod.halo_pad_planes(planes, SALIENCY_HALO, mesh)
+            gbuf_pad = {"albedo": Vec3(*pad[0:3]), "depth": pad[3],
+                        "normal": Vec3(*pad[4:7]), "shadow": pad[7],
+                        "reproject_u": pad[8], "reproject_v": pad[9]}
+            sal = halo_mod.crop_rows(saliency.compute_saliency(
+                gbuf_pad, gaze_px, pipeline.bbox_diagonal(scene),
+                config.saliency_block, row_offset=y0 - SALIENCY_HALO,
+                focal=focal), SALIENCY_HALO)
+        # the dither tables and the sparse floor stay aligned: y0 % 8 == 0
+        with span("fov.sampling.mask"):
+            mask = pipeline.sample_mask(sal, gaze_px, state.frame, config,
+                                        y0=y0)
 
     # ---- 3. per-tile compaction (scanline order) ---------------------------
-    budget = tile_budget(config, mesh.size, bh)
-    idx, active, rank, gate = sampling.compact_mask_rank(mask.reshape(-1),
-                                                         budget)
+    with span("fov.compact"):
+        budget = tile_budget(config, mesh.size, bh)
+        idx, active, rank, gate = sampling.compact_mask_rank(
+            mask.reshape(-1), budget)
 
     # ---- 4. shading (global pixel ids) and the temporal accumulate ---------
-    (shading_rgb, shading_alpha), history, traced_mask, shade_rays = \
-        pipeline.stage_shade(scene, camera, idx, active, fetched, is_valid,
-                             state, config, gaze_target, rank, gate, y0=y0)
+    with span("fov.shade"):
+        (shading_rgb, shading_alpha), history, traced_mask, shade_rays = \
+            pipeline.stage_shade(scene, camera, idx, active, fetched,
+                                 is_valid, state, config, gaze_target, rank,
+                                 gate, y0=y0)
 
     # the frame's counters, in one collective (float64 holds them exactly)
     mask_count = mask.sum()
@@ -186,8 +215,9 @@ def render_sharded(scene, camera, gaze_px, state: pipeline.FrameState,
     ray_count, rays_dropped, rays_traced = counts.to(torch.int64).unbind()
 
     # ---- 5. reconstruction --------------------------------------------------
-    image_rgb, image_alpha, extras = _reconstruct(
-        shading_rgb, shading_alpha, gbuf, config, mesh, y0)
+    with span("fov.reconstruct"):
+        image_rgb, image_alpha, extras = _reconstruct(
+            shading_rgb, shading_alpha, gbuf, config, mesh, y0)
 
     outputs: Dict[str, torch.Tensor] = {
         "image_rgb": image_rgb,

@@ -45,6 +45,7 @@ from pathlib import Path
 import torch
 
 from fovtrace_torch import _build, kernels
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.config import pin_fp32
 from fovtrace_torch.core import vec
 from fovtrace_torch.core.vec import Vec3
@@ -197,11 +198,17 @@ def stream_inputs(coef: torch.Tensor, aux: torch.Tensor) -> dict:
 def pack_raysT(ro: Vec3, rd: Vec3, t_min, t_max):
     """SoA rays -> ([NB, 16, 256] feature blocks, N). Rows: o (3), d (3),
     o x d (3), 1, t_min, t_max, 1/d (3), 0. N is padded to whole blocks
-    with filler rays d = (1,0,0), t_max = -1 that never hit."""
+    with filler rays d = (1,0,0), t_max = -1 that never hit. A bound
+    given as a number goes up to the device in a blocking copy (span
+    fov.sync.ray_bound)."""
     n = ro.x.shape[0]
     dev = ro.x.device
-    f = lambda a: torch.as_tensor(a, dtype=torch.float32,
-                                  device=dev).expand(n)
+
+    def f(a):
+        up = not (torch.is_tensor(a) and a.device == dev)
+        with span("fov.sync.ray_bound") if up else contextlib.nullcontext():
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device=dev).expand(n)
     # o x d without fused multiply-adds (vec.cross contracts them), as
     # the reference's pack_raysT rounds it when it runs op by op
     w = Vec3(ro.y * rd.z - ro.z * rd.y, ro.z * rd.x - ro.x * rd.z,

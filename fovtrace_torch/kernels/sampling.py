@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.core import mathx
 
 # 4x4 dither masks, 1 = sample
@@ -83,14 +84,18 @@ def masked_sampling(height: int, width: int, gaze_dist, saliency,
     """Binary dither-mask decision [H,W] bool: full inside r0, 25-mask to
     1.5 r0, 50-mask to 2 r0; saliency bands add samples; a sparse
     1/extra^2 grid floors the periphery. The tables index [x % 4][y % 4],
-    as in the reference."""
+    as in the reference. Each table is built on the host and uploaded in
+    a blocking copy (span fov.sync.dither_table)."""
     dev = gaze_dist.device
     r0 = aperture
     r1 = r0 * 1.5
     r2 = r0 * 2.0
     ys = np.arange(height)[:, None] % 4
     xs = np.arange(width)[None, :] % 4
-    tab = lambda m: torch.as_tensor(m[xs, ys], device=dev)
+
+    def tab(m):
+        with span("fov.sync.dither_table"):
+            return torch.as_tensor(m[xs, ys], device=dev)
     m25, m50, m75 = tab(MASK_25), tab(MASK_50), tab(MASK_75)
     false = torch.zeros((), dtype=torch.bool, device=dev)
 

@@ -14,6 +14,13 @@ device tensors; nothing in a frame waits for the device.
 `render_frame_staged` (also `render.staged`'s, the reference's module)
 runs the same frame with each stage timed (`app.profiler.StageTimer.stage`, named as the reference's report
 columns GB, Sampling, Optimize, Shading, JFA, SI, PPI, AT).
+
+Every frame opens the program's spans (`app.profiler.span`: fov.frame,
+fov.gbuffer, fov.sampling{,.cache,.saliency,.mask}, fov.compact,
+fov.shade with fov.shade.bounce<k>, fov.reconstruct{,.jfa,.sibson,
+.pullpush,.atrous}), which are torch.profiler ranges while a profiler
+runs and cost a flag check otherwise; a timer's stages enclose the
+spans of the same stage.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.config import RenderConfig, pin_fp32
 from fovtrace_torch.core import color as colorx
 from fovtrace_torch.core import mathx, reproject, rng, vec
@@ -116,15 +124,18 @@ def stage_sampling(scene, gbuf, gaze_px, state: FrameState,
     """Cache validation, saliency and the sample mask. Returns (mask,
     saliency, is_valid, fetched cache rows, gaze_target, ray_count)."""
     h, w = config.height, config.width
-    is_valid, _, _, fetched = reproject.validate_cache(
-        gbuf["reproject_u"], gbuf["reproject_v"], gbuf["position"],
-        state.depth_cache, state.prev_camera.eye, w, h, config.cache_epsilon,
-        history=state.history)
-    if not config.temporal:
-        is_valid = torch.zeros_like(is_valid)
-    sal = saliency.compute_saliency(gbuf, gaze_px, bbox_diagonal(scene),
-                                    config.saliency_block)
-    mask = sample_mask(sal, gaze_px, state.frame, config)
+    with span("fov.sampling.cache"):
+        is_valid, _, _, fetched = reproject.validate_cache(
+            gbuf["reproject_u"], gbuf["reproject_v"], gbuf["position"],
+            state.depth_cache, state.prev_camera.eye, w, h,
+            config.cache_epsilon, history=state.history)
+        if not config.temporal:
+            is_valid = torch.zeros_like(is_valid)
+    with span("fov.sampling.saliency"):
+        sal = saliency.compute_saliency(gbuf, gaze_px, bbox_diagonal(scene),
+                                        config.saliency_block)
+    with span("fov.sampling.mask"):
+        mask = sample_mask(sal, gaze_px, state.frame, config)
     p = gbuf["position"]
     gy, gx = gaze_px
     gaze_target = torch.stack([p.x[gy, gx], p.y[gy, gx], p.z[gy, gx]])
@@ -233,18 +244,18 @@ def stage_reconstruct(shading_rgb: Vec3, shading_alpha, gbuf,
     if recon in ("jfa", "sibson", "all"):
         sh_rows = torch.cat([vec.to_rows(shading_rgb),
                              shading_alpha[..., None]], dim=-1)
-        with stage("JFA") as box:
+        with stage("JFA") as box, span("fov.reconstruct.jfa"):
             box["result"] = coord, jfa_color = jfa.jump_flood(sh_rows)
         extras["jfa"] = jfa_color
         out_rgb, out_a = vec.from_rows(jfa_color[..., :3]), jfa_color[..., 3]
         if recon in ("sibson", "all"):
-            with stage("SI") as box:
+            with stage("SI") as box, span("fov.reconstruct.sibson"):
                 box["result"] = sib = sibson.sibson_interpolate(
                     coord, jfa_color, config.sibson_max_radius)
             extras["sibson"] = sib
             out_rgb, out_a = vec.from_rows(sib[..., :3]), sib[..., 3]
     if recon in ("pullpush", "atrous", "all"):
-        with stage("PPI") as box:
+        with stage("PPI") as box, span("fov.reconstruct.pullpush"):
             box["result"] = pp_rgb, pp_a = pullpush.pull_push_v(
                 shading_rgb, shading_alpha)
         if config.full_outputs:
@@ -252,7 +263,7 @@ def stage_reconstruct(shading_rgb: Vec3, shading_alpha, gbuf,
                                             pp_a[..., None]], dim=-1)
         out_rgb, out_a = pp_rgb, pp_a
         if recon in ("atrous", "all"):
-            with stage("AT") as box:
+            with stage("AT") as box, span("fov.reconstruct.atrous"):
                 box["result"] = at = atrous.atrous_denoise_v(
                     pp_rgb, gbuf["position"], gbuf["normal"],
                     config.atrous_iterations, config.atrous_c_phi,
@@ -285,25 +296,33 @@ def render_frame_staged(scene, camera: Camera, gaze_px, state: FrameState,
     (`app.profiler.StageTimer`), which waits for the result the stage
     leaves in the context's dict under "result"; with no timer, nothing
     is timed or waited for. The outputs and new state are the same
-    either way."""
-    stage = untimed if timer is None else timer.stage
+    either way, and so are the program's spans (the module docstring),
+    which open inside the timer's stage of the same name."""
+    with span("fov.frame"):
+        return _render_frame(scene, camera, gaze_px, state, config,
+                             untimed if timer is None else timer.stage)
+
+
+def _render_frame(scene, camera: Camera, gaze_px, state: FrameState,
+                  config: RenderConfig, stage):
     pin_fp32(camera.device)
     gaze_px = (int(gaze_px[0]), int(gaze_px[1]))
-    with stage("GB") as box:
+    with stage("GB") as box, span("fov.gbuffer"):
         box["result"] = gbuf = stage_gbuffer(scene, camera,
                                              state.prev_camera, config)
-    with stage("Sampling") as box:
+    with stage("Sampling") as box, span("fov.sampling"):
         box["result"] = mask, sal, is_valid, fetched, gaze_target, \
             ray_count = stage_sampling(scene, gbuf, gaze_px, state, config)
-    with stage("Optimize") as box:
+    with stage("Optimize") as box, span("fov.compact"):
         box["result"] = idx, active, rank, gate = stage_compact(mask, config)
-    with stage("Shading") as box:
+    with stage("Shading") as box, span("fov.shade"):
         box["result"] = (shading_rgb, shading_alpha), history, traced_mask, \
             shade_rays = stage_shade(scene, camera, idx, active, fetched,
                                      is_valid, state, config, gaze_target,
                                      rank, gate)
-    image_rgb, image_alpha, extras = stage_reconstruct(
-        shading_rgb, shading_alpha, gbuf, config, stage)
+    with span("fov.reconstruct"):
+        image_rgb, image_alpha, extras = stage_reconstruct(
+            shading_rgb, shading_alpha, gbuf, config, stage)
 
     outputs: Dict[str, torch.Tensor] = {
         "image_rgb": image_rgb,

@@ -18,6 +18,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from fovtrace_torch.app.profiler import span
 from fovtrace_torch.core import mathx, rng, vec
 from fovtrace_torch.core.vec import Vec3
 from fovtrace_torch.kernels import envmap as envmap_k
@@ -185,7 +186,8 @@ def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config,
     in the first bounce, as the reference traces (and counts) them, but
     only active lanes continue: the reference lets the padding lanes,
     copies of one pixel's ray, go on bouncing, where they can crowd the
-    real survivors out of the next bounce's budget."""
+    real survivors out of the next bounce's budget. Each bounce, its
+    compaction included, runs in span fov.shade.bounce<k>."""
     from fovtrace_torch.kernels import sampling
 
     n = ro.x.shape[0]
@@ -209,43 +211,46 @@ def shade_v(scene, ro: Vec3, rd: Vec3, seeds: torch.Tensor, config,
         body = functools.partial(checkpoint, _bounce, use_reentrant=False,
                                  preserve_rng_state=False)
     for bounce in range(config.max_depth):
-        (add, origin, direction, throughput, seeds, gi_depth, alive, traced,
-         first) = body(scene, config, bounce, origin, direction, throughput,
-                       seeds, gi_depth, alive)
-        rays_traced = rays_traced + traced
-        if bounce == 0 and active is not None:
-            alive = alive & active
-        result = Vec3(result.x.index_add(0, pix, add.x),
-                      result.y.index_add(0, pix, add.y),
-                      result.z.index_add(0, pix, add.z))
-        if bounce == 0:
-            point, n_sh, t0, valid0 = first
-            aux["point"] = vec.where(valid0, point, 0.0)
-            aux["normal"] = vec.where(valid0, n_sh, 0.0)
-            aux["t"] = torch.where(valid0, t0, isect.BIG_T)
+        with span(f"fov.shade.bounce{bounce}"):
+            (add, origin, direction, throughput, seeds, gi_depth, alive,
+             traced, first) = body(scene, config, bounce, origin, direction,
+                                   throughput, seeds, gi_depth, alive)
+            rays_traced = rays_traced + traced
+            if bounce == 0 and active is not None:
+                alive = alive & active
+            result = Vec3(result.x.index_add(0, pix, add.x),
+                          result.y.index_add(0, pix, add.y),
+                          result.z.index_add(0, pix, add.z))
+            if bounce == 0:
+                point, n_sh, t0, valid0 = first
+                aux["point"] = vec.where(valid0, point, 0.0)
+                aux["normal"] = vec.where(valid0, n_sh, 0.0)
+                aux["t"] = torch.where(valid0, t0, isect.BIG_T)
 
-        # compact the survivors, octant major, for the next bounce
-        if bounce + 1 < config.max_depth:
-            width = origin.x.shape[0]
-            fracs = config.bounce_budget_fracs
-            budget = int(n * fracs[min(bounce, len(fracs) - 1)])
-            budget = min(max(1024, (budget + 1023) // 1024 * 1024), width)
-            if budget < width:
-                idx, active, rankc, gatec = sampling.compact_mask_keyed_rank(
-                    alive, sampling.direction_octant(direction), 8, budget)
-                rows = torch.stack([origin.x, origin.y, origin.z,
-                                    direction.x, direction.y, direction.z,
-                                    throughput.x, throughput.y,
-                                    throughput.z], dim=-1)
-                cols = sampling.compact_gather(rows, idx, rankc, gatec).T
-                origin = Vec3(cols[0], cols[1], cols[2])
-                direction = Vec3(cols[3], cols[4], cols[5])
-                throughput = Vec3(cols[6], cols[7], cols[8])
-                seeds = seeds[idx]
-                gi_depth = gi_depth[idx]
-                pix = torch.where(active, pix[idx], n)
-                # every active slot came from an alive lane
-                alive = active
+            # compact the survivors, octant major, for the next bounce
+            if bounce + 1 < config.max_depth:
+                width = origin.x.shape[0]
+                fracs = config.bounce_budget_fracs
+                budget = int(n * fracs[min(bounce, len(fracs) - 1)])
+                budget = min(max(1024, (budget + 1023) // 1024 * 1024), width)
+                if budget < width:
+                    idx, active, rankc, gatec = \
+                        sampling.compact_mask_keyed_rank(
+                            alive, sampling.direction_octant(direction), 8,
+                            budget)
+                    rows = torch.stack([origin.x, origin.y, origin.z,
+                                        direction.x, direction.y, direction.z,
+                                        throughput.x, throughput.y,
+                                        throughput.z], dim=-1)
+                    cols = sampling.compact_gather(rows, idx, rankc, gatec).T
+                    origin = Vec3(cols[0], cols[1], cols[2])
+                    direction = Vec3(cols[3], cols[4], cols[5])
+                    throughput = Vec3(cols[6], cols[7], cols[8])
+                    seeds = seeds[idx]
+                    gi_depth = gi_depth[idx]
+                    pix = torch.where(active, pix[idx], n)
+                    # every active slot came from an alive lane
+                    alive = active
 
     aux["rays_traced"] = rays_traced
     return result.map(lambda a: a[:n]), aux

@@ -201,6 +201,59 @@ def case_train(mesh, foveated=False, soft=False, size=32, steps=1):
     return res
 
 
+def span_tree(prof) -> dict:
+    """{(span, its innermost enclosing span or ""): count} of the
+    program's spans (fov.*) in a finished torch.profiler run."""
+    tree = {}
+    for e in prof.events():
+        if not e.name.startswith("fov."):
+            continue
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("fov."):
+            p = p.cpu_parent
+        key = (e.name, "" if p is None else p.name)
+        tree[key] = tree.get(key, 0) + 1
+    return tree
+
+
+def profiled(fn):
+    """(fn(), the span tree of its run) under torch.profiler (CPU)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        res = fn()
+    return res, span_tree(prof)
+
+
+def case_spans(mesh, gaze, **cfg_kw):
+    """One sharded frame of the multi scene from the initial state, with
+    no profiler and then under one: both frames' gathered image, mask
+    and history, and the profiled frame's span tree as entries
+    "tree/<span>/<parent>" (the span count)."""
+    from fovtrace_torch import Camera
+    from fovtrace_torch.dist import collectives as coll
+    from fovtrace_torch.dist import sharding as shd
+    from fovtrace_torch.scene import procedural
+
+    config = frame_config(**cfg_kw)
+    sc = procedural.multi_object_scene("cpu")
+    cam = Camera.create(eye=FRAME_EYE, target=FRAME_TARGET, device="cpu")
+    state = shd.initial_state_sharded(cam, config, mesh)
+    render = lambda: shd.render_sharded(sc, cam, gaze, state, config, mesh)
+    res = {}
+    off = render()
+    on, tree = profiled(render)
+    for label, (out, new) in (("off", off), ("on", on)):
+        full = shd.gather_frame(out, mesh)
+        for k in ("image", "mask", "ray_count", "rays_traced"):
+            res[f"{label}/{k}"] = full[k]
+        res[f"{label}/history"] = coll.all_gather_rows(new.history, mesh,
+                                                       dim=1)
+        res[f"{label}/depth"] = coll.all_gather_rows(new.depth_cache, mesh)
+    for (name, parent), n in tree.items():
+        res[f"tree/{name}/{parent}"] = torch.tensor(n)
+    return res
+
+
 def case_several(mesh, cases):
     """Several cases in one launch of the ranks (each rank process costs
     seconds of start-up): {label: [case, kw]} -> rank 0's results of
