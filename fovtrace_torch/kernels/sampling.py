@@ -11,16 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fovtrace_torch.app.profiler import span
 from fovtrace_torch.core import mathx
-
-# 4x4 dither masks, 1 = sample
-MASK_25 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [1, 1, 1, 1], [1, 1, 1, 1]],
-                     bool)
-MASK_50 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 1, 1], [0, 0, 1, 1]],
-                     bool)
-MASK_75 = np.asarray([[1, 1, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0]],
-                     bool)
 
 
 def gaze_distance(height: int, width: int, gaze_px, device,
@@ -83,20 +74,18 @@ def masked_sampling(height: int, width: int, gaze_dist, saliency,
                     aperture: float = 0.07, extra_sample_rate: int = 8):
     """Binary dither-mask decision [H,W] bool: full inside r0, 25-mask to
     1.5 r0, 50-mask to 2 r0; saliency bands add samples; a sparse
-    1/extra^2 grid floors the periphery. The tables index [x % 4][y % 4],
-    as in the reference. Each table is built on the host and uploaded in
-    a blocking copy (span fov.sync.dither_table)."""
+    1/extra^2 grid floors the periphery. The reference's 4x4 tables,
+    indexed [x % 4][y % 4], are bit tests on the two residues, built on
+    the gaze field's device from the pixel coordinates."""
     dev = gaze_dist.device
     r0 = aperture
     r1 = r0 * 1.5
     r2 = r0 * 2.0
-    ys = np.arange(height)[:, None] % 4
-    xs = np.arange(width)[None, :] % 4
-
-    def tab(m):
-        with span("fov.sync.dither_table"):
-            return torch.as_tensor(m[xs, ys], device=dev)
-    m25, m50, m75 = tab(MASK_25), tab(MASK_50), tab(MASK_75)
+    xlo = (torch.arange(width, device=dev)[None, :] & 3) < 2
+    ylo = (torch.arange(height, device=dev)[:, None] & 3) < 2
+    m25 = ~xlo | ylo
+    m50 = xlo == ylo
+    m75 = xlo & ylo
     false = torch.zeros((), dtype=torch.bool, device=dev)
 
     sample = torch.where(

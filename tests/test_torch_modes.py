@@ -171,6 +171,54 @@ def test_sampling_masks_bit_for_bit(mode, field):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+# (height, width, gaze (gy, gx), a row block (y0, bh) with y0 % 8 == 0):
+# square; neither side a multiple of 4; a wide frame
+MASKED_FIELDS = [(64, 64, (30, 33), (24, 16)), (37, 53, (17, 26), (16, 21)),
+                 (136, 240, (70, 101), (64, 40))]
+SAL_EDGES = (0.01, 0.4, 0.6)
+
+
+def _banded_saliency(h, w, seed):
+    """[H,W] float32 in [0, 1): s**3 of a uniform draw fills every band
+    of masked_sampling (<= 0.01 a fifth of it), and every 7th pixel is
+    one of the band edges exactly."""
+    s = np.random.default_rng(seed).random((h, w)).astype(np.float32) ** 3
+    edges = np.resize(np.asarray(SAL_EDGES, np.float32), s[:, ::7].shape)
+    s[:, ::7] = edges
+    return s
+
+
+@pytest.mark.parametrize("block", ["frame", "rows"])
+@pytest.mark.parametrize("field", range(len(MASKED_FIELDS)))
+def test_masked_sampling_bit_for_bit(field, block):
+    """The dither-mask decision against the reference's table lookups,
+    over every gaze band and saliency band; a row block [y0, y0 + bh)
+    from its own gaze distance gives that slice of the frame's mask."""
+    h, w, (gy, gx), (y0, bh) = MASKED_FIELDS[field]
+    ap, extra = 0.07, 8
+    sal = _banded_saliency(h, w, field)
+    jd = np.asarray(jsampling.gaze_distance(
+        h, w, (jnp.asarray(gy), jnp.asarray(gx))))
+    want = np.asarray(jsampling.masked_sampling(h, w, jnp.asarray(jd),
+                                                jnp.asarray(sal), ap, extra))
+    gband = np.digitize(jd, [ap, ap * 1.5, ap * 2.0], right=False)
+    assert set(np.unique(gband)) == {0, 1, 2, 3}
+    sband = np.digitize(sal, SAL_EDGES, right=True)
+    assert set(np.unique(sband)) == {0, 1, 2, 3}
+    floor = (sal <= SAL_EDGES[0]) & (jd > ap * 2.0)
+    assert floor[::extra, ::extra].any()
+    assert 0 < want.sum() < want.size
+    if block == "frame":
+        y0, bh = 0, h
+    td = sampling.gaze_distance(h, w, (gy, gx), "cpu", row_offset=y0,
+                                block_h=bh)
+    np.testing.assert_array_equal(td.numpy(), jd[y0:y0 + bh])
+    got = sampling.masked_sampling(bh, w, td, torch.as_tensor(sal[y0:y0 + bh]),
+                                   ap, extra)
+    assert got.dtype == torch.bool and got.shape == (bh, w)
+    np.testing.assert_array_equal(got.numpy(), want[y0:y0 + bh])
+
+
 # ---------------------------------------------------------------- goldens
 def _golden(name):
     ref = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))

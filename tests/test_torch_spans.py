@@ -29,8 +29,8 @@ FILTERS = {"atrous": ("pullpush", "atrous"), "none": (),
            "all": ("jfa", "sibson", "pullpush", "atrous")}
 # the frame's blocking exchanges between host and device
 SYNC_SITES = {"fov.sync.inv4_download", "fov.sync.inv4_upload",
-              "fov.sync.view_matrix", "fov.sync.dither_table",
-              "fov.sync.tonemap_white", "fov.sync.ray_bound"}
+              "fov.sync.view_matrix", "fov.sync.tonemap_white",
+              "fov.sync.ray_bound"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,8 +65,10 @@ def _check_tree(tree, config, filters, sampling_spans=1):
     """One fov.frame holding every other span; each stage once in it
     (fov.sampling `sampling_spans` times), the sampling parts in
     fov.sampling, one bounce span per bounce in fov.shade, the filters
-    that run in fov.reconstruct, and the sync sites inside the frame's
-    spans."""
+    that run in fov.reconstruct, the sync sites inside the frame's
+    spans, and none in the masked sampler (its dither patterns are built
+    on the device)."""
+    assert config.sampling_mode == "masked"
     names = _names(tree)
     assert tree[("fov.frame", "")] == 1 and names["fov.frame"] == 1
     assert [k for k in tree if k[1] == ""] == [("fov.frame", "")]
@@ -82,6 +84,7 @@ def _check_tree(tree, config, filters, sampling_spans=1):
     assert {n for (n, p) in tree if p == "fov.reconstruct"} == recon
     syncs = {n for n in names if n.startswith("fov.sync.")}
     assert syncs and syncs <= SYNC_SITES, syncs
+    assert not [n for (n, p) in tree if p == "fov.sampling.mask"]
     assert set(names) - syncs - {n for n in names
                                  if n.startswith("fov.coll.")} == \
         {"fov.frame", *STAGES, *SAMPLING, *bounces, *recon}
