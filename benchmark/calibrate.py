@@ -111,29 +111,46 @@ def main(argv=None) -> int:
         if kind == "view":
             got = viewer.run_program(run)
             numbers = viewer.reference_frames(run, got)["numbers"]
+            extra = {}
         else:
             got = trainer.run_program(run)
-            numbers = trainer.compare(got, trainer.reference_steps(run))
+            ref = trainer.reference_steps(run)
+            numbers = trainer.compare(got, ref)
+            extra = {"leaves": leaf_norms(got["checked"], ref)}
         print(json.dumps({"reading": "program", "seed": seed,
-                          "failed": got["failed"], "numbers": numbers}),
-              flush=True)
+                          "failed": got["failed"], "numbers": numbers,
+                          **extra}), flush=True)
     for seed in [int(s) for s in args.control_seeds.split(",") if s]:
         run = Run(config=config, mix=cell["mix"], seed=seed,
                   seconds=args.seconds, traced=False, device=dev)
+        extra = {}
         if kind == "view":
             numbers = control_view(run)
         else:
-            numbers = check_train_control(run)
+            numbers, extra["leaves"] = check_train_control(run)
         print(json.dumps({"reading": "control", "seed": seed,
-                          "numbers": numbers}), flush=True)
+                          "numbers": numbers, **extra}), flush=True)
     return 0
 
 
-def check_train_control(run: Run) -> dict:
+def check_train_control(run: Run):
+    """(the bfloat16 control's numbers, its leaf_norms)."""
     from harness import check
     ref = trainer.reference_steps(run)
     ctl = trainer.reference_steps(run, quantize=bf16)
-    return check.train_numbers(ctl, ref)
+    return check.train_numbers(ctl, ref), leaf_norms(ctl, ref)
+
+
+def leaf_norms(p: dict, r: dict) -> dict:
+    """Each checked step's loss and each leaf's norm of the first
+    gradient and of the change, as [one side's, the reference's]."""
+    def norms(a, b):
+        return [[float(torch.linalg.vector_norm(x.double())),
+                 float(torch.linalg.vector_norm(y.double()))]
+                for x, y in zip(a, b)]
+    return {"losses": [[a, b] for a, b in zip(p["losses"], r["losses"])],
+            "grad1": norms(p["grad1"], r["grad1"]),
+            "change": norms(p["change"], r["change"])}
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ gradient is under a thousandth of the median leaf's are left out.
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 
 import torch
@@ -51,8 +52,11 @@ def _off(p: torch.Tensor, r: torch.Tensor, tol) -> torch.Tensor:
 
 
 def _gap(p, r) -> float:
+    """|p - r| / |r|; inf where either side is not finite (max() would
+    pass over a NaN that is not first)."""
     p, r = float(p), float(r)
-    return abs(p - r) / max(abs(r), 1e-30)
+    g = abs(p - r) / max(abs(r), 1e-30)
+    return g if math.isfinite(g) else math.inf
 
 
 def view_numbers(p: dict, r: dict) -> dict:
@@ -98,15 +102,17 @@ def _leaf_gap(prog, ref, keep) -> float:
     nr = [float(torch.linalg.vector_norm(t.double())) for t in ref]
     kept = [i for i in range(len(nr)) if keep[i]]
     med = sorted(nr[i] for i in kept)[len(kept) // 2]
-    return max(abs(np_[i] - nr[i]) / max(nr[i], med, 1e-30) for i in kept)
+    gaps = [abs(np_[i] - nr[i]) / max(nr[i], med, 1e-30) for i in kept]
+    return max(g if math.isfinite(g) else math.inf for g in gaps)
 
 
 def kept_leaves(ref_grads) -> list:
     """Leaves whose reference gradient norm is at least a thousandth of
-    the median leaf's: the others move under Adam by round-off alone."""
+    the median leaf's: the others move under Adam by round-off alone. A
+    leaf whose norm is not finite is kept."""
     n = [float(torch.linalg.vector_norm(g.double())) for g in ref_grads]
     med = sorted(n)[len(n) // 2]
-    return [x >= 1e-3 * med for x in n]
+    return [not x < 1e-3 * med for x in n]
 
 
 def train_numbers(p: dict, r: dict) -> dict:

@@ -42,7 +42,8 @@ def result(args, cell, run, got, numbers, bound, chips, device):
     rec = got["records"]
     if args.trace:
         rec["clock"] = {"scene_build_s": got["scene_build_s"],
-                        "enqueue_ms": [s * 1e3 for s in got["enqueue"]]}
+                        "enqueue_ms": [s * 1e3 for s in got["enqueue"]],
+                        "latency_ms": [s * 1e3 for s in got["latencies"]]}
         rec["bounds"] = dict(bound, chips=chips)
         if "isect_all_s" in got:
             rec["isect_all_s"] = got["isect_all_s"]
@@ -51,7 +52,8 @@ def result(args, cell, run, got, numbers, bound, chips, device):
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        vals = {"setup_s": got["setup_s"]}
+        vals = {"setup_s": got["setup_s"],
+                "memory_per_card_gb": got["peak"] * 1e-9}
         if run.mix["kind"] == "view":
             vals.update(viewer.frame_stats(got["latencies"],
                                            got["window_s"]))

@@ -24,11 +24,25 @@ from reference import intersect as isect
 
 def envmap_texel_coords(dirs: Vec3, h: int, w: int):
     """(fx, fy): the continuous texel coordinates of each direction on an
-    [h, w] lat-long map (u = 0 at theta = -pi, v = 1 at the top)."""
+    [h, w] lat-long map (u = 0 at theta = -pi, v = 1 at the top).
+
+    v = 0.5 (1 + sin(pi/2 - acos y)) is 0.5 (1 + y), so dv/dy = 0.5
+    everywhere; but acos'(+-1) is infinite, and a direction whose y rounds
+    to +-1 (a mirror ray off a level normal) would carry an infinite
+    gradient into the shading normal. On those pole lanes acos takes y
+    detached, so the forward is the same formula bit for bit, and v gets
+    its gradient 0.5 from `0.5 (y - y.detach())`, which adds 0; off the
+    poles the gradient is the formula's, bit for bit. The JAX package's
+    `arccos` gives -inf there."""
     theta = torch.atan2(dirs.x, dirs.z)
-    phi = math.pi * 0.5 - torch.acos(torch.clamp(dirs.y, -1.0, 1.0))
+    y = torch.clamp(dirs.y, -1.0, 1.0)
+    pole = y.abs() >= 1.0
+    # torch.where's backward selects, so acos's infinite slope at the
+    # poles reaches no lane: pole lanes take their gradient from `lin`
+    phi = math.pi * 0.5 - torch.acos(torch.where(pole, y.detach(), y))
     u = (theta + math.pi) * (0.5 / math.pi)
-    v = 0.5 * (1.0 + torch.sin(phi))
+    lin = torch.where(pole, 0.5 * (y - y.detach()), 0.0)
+    v = 0.5 * (1.0 + torch.sin(phi)) + lin
     return u * (w - 1), (1.0 - v) * (h - 1)
 
 

@@ -11,7 +11,7 @@ import sys
 import pytest
 
 from harness import spec
-from helpers import copy_benchmark
+from helpers import copy_benchmark, with_train
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -33,39 +33,43 @@ def test_top_level_keys_and_sizes():
     assert len(B["command"]) <= 32 and all(_text(w) for w in B["command"])
 
 
-def test_names_units_and_texts():
+@pytest.mark.parametrize("b", [B, with_train(json.loads(json.dumps(B)))],
+                         ids=["committed", "with_the_train_cell"])
+def test_names_units_and_texts(b):
     names = []
-    for c in B["configs"]:
+    for c in b["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert _text(c["source"]) and _text(c["why"])
         assert c["file"].startswith("benchmark/")
         assert all(NAME.match(k) for k in c["reduced"])
         names.append(c["name"])
-    for w in B["workloads"]:
+    for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] in (1, 4) and _text(w["why"])
         assert NAME.match(w["config"]) and NAME.match(w["traffic"])
         names.append(w["name"])
-    e2e = {m["name"] for m in B["end_to_end"]}
-    for m in B["end_to_end"] + B["per_layer"]:
+    e2e = {m["name"] for m in b["end_to_end"]}
+    for m in b["end_to_end"] + b["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert m["source"] in ("device_trace", "program_span",
                                "program_counter", "host_clock")
         names.append(m["name"])
-    for m in B["end_to_end"]:
+    for m in b["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25
-    for m in B["per_layer"]:
+    for m in b["per_layer"]:
         assert m["moves"] in e2e and _text(m["layer"])
         for w in m["workloads"]:
-            cell = spec.cell(B, w)
+            cell = spec.cell(b, w)
             assert m["moves"] in {e["name"] for e in cell["end_to_end"]}
     assert all(NAME.match(n) for n in names)
     assert len(set(names)) == len(names)
 
 
-def test_every_cell_finds_its_files():
-    for w in B["workloads"]:
-        cell = spec.cell(B, w["name"])
+@pytest.mark.parametrize("b", [B, with_train(json.loads(json.dumps(B)))],
+                         ids=["committed", "with_the_train_cell"])
+def test_every_cell_finds_its_files(b):
+    for w in b["workloads"]:
+        cell = spec.cell(b, w["name"])
         assert cell["end_to_end"] and cell["per_layer"]
         assert "setup_s" in {m["name"] for m in cell["end_to_end"]}
         for m in cell["per_layer"]:
